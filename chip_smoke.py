@@ -1,0 +1,425 @@
+"""Chip smoke for the PyTorch / CUDA port: builds the kernels, holds each
+against its plain PyTorch version on the card, drives the coupled
+interactive frame through the port's entry points at full width (the bench
+scene of bench.py: 3,053 IPs, 800x800, K=128, the trained checkpoint), and
+checks the frame against the committed exact-bending oracle.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and nvcc (sm_90a). Every phase prints one JSON line;
+any failure raises, so the script exits non-zero. The last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CKPT = os.path.join(ROOT, "runs/quality_mlp_800/checkpoints/ngp_ep0015.npz")
+ORACLE = os.path.join(ROOT, "runs/bench_oracle_800_K128_3053ip.npz")
+
+# published H100 SXM peaks (dense): f32 on the CUDA cores, bf16 on the
+# tensor cores, HBM3 bandwidth; they assume the 700 W power limit
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+FIELD_MACS = 18752                # per point: sigma 3264+8192+8192+1024,
+#                                   color 1984+4096+192 (the 64-wide net)
+FIELD_IO = 40                     # bytes per point: x, d in; sigma, rgb out
+# bf16 kernel-vs-plain limits, set between the sound kernel's reading and
+# the control's (the f32 kernel, which skips the bf16 rounding, read against
+# the bf16 plain version); the control must fail them. On an H100 the
+# kernels read 0.0 / 0.0 and 97.6 dB, the controls 0.040 / 0.18 and 67.1 dB.
+FIELD_BF16_TOL = (1e-2, 2e-2)     # rgb max abs, sigma max rel
+TILE_BF16_DB = 80.0               # PSNR of the rgb rows
+
+
+def emit(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean device ms per call over ``reps`` calls, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def frame_profile(prof, n_frames: int, ms_per_frame: float) -> dict:
+    """Per-frame times from a torch.profiler run of ``n_frames`` chained
+    frames: host ms and device ms of pipeline.py's ``frame.*`` ranges, the
+    device's busy ms (union of its kernel and copy spans), the tile
+    kernel's device ms, and the idle share of the unprofiled frame. A
+    range's device ms counts the kernels of the torch ops inside it; the
+    profiler links no op to the tile kernel's ctypes launch, so the tile
+    kernel is counted on its own and not in ``frame.render``."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    host, dev_ms, spans, tile_us = {}, {}, [], 0.0
+    for e in prof.events():
+        if e.name.startswith("frame."):
+            if e.device_type != cuda:
+                host[e.name] = host.get(e.name, 0.0) + e.cpu_time_total
+                dev_ms[e.name] = dev_ms.get(e.name, 0.0) + e.device_time_total
+        elif e.device_type == cuda:
+            spans.append((e.time_range.start, e.time_range.end))
+            if "render_tiles_kernel" in e.name:
+                tile_us += e.time_range.elapsed_us()
+    busy, end = 0.0, float("-inf")
+    for s, t in sorted(spans):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    per = 1e3 * n_frames
+    busy_ms = busy / per
+    return dict(frames=n_frames,
+                stage_host_ms={k: v / per for k, v in host.items()},
+                stage_device_ms={k: v / per for k, v in dev_ms.items()},
+                device_busy_ms=busy_ms, device_events=len(spans),
+                tile_kernel_device_ms=tile_us / per,
+                ms_per_frame_unprofiled=ms_per_frame,
+                device_idle_share=1.0 - busy_ms / ms_per_frame)
+
+
+def psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        sys.exit(1)
+
+    import pienerf_tpu_torch  # noqa: F401  (precision policy)
+    from pienerf_tpu_torch.io.checkpoint import load_native
+    from pienerf_tpu_torch.kernels import _build
+    from pienerf_tpu_torch.kernels import field as fk
+    from pienerf_tpu_torch.kernels import tile as tk
+    from pienerf_tpu_torch.models import network
+    from pienerf_tpu_torch.ops import beam_bend
+    from pienerf_tpu_torch.render import interactive, pipeline
+    from pienerf_tpu_torch.sim import solver as sim
+    from pienerf_tpu_torch.weights import field_from_numpy
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, name=kind,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    # ---- build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    rep = _build.build()
+    emit("build", seconds=time.perf_counter() - t0,
+         ptxas={k: [ln.strip() for ln in v["log"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for k, v in rep.items()})
+
+    # ---- the trained field (bench.py adopts the arch from the weights)
+    tree, _ = load_native(CKPT)
+    params = tree["ema_params"]
+    nf = (params["sigma_net"][0].shape[0] // 3 - 1) // 2
+    spec16 = network.make_spec(bound=1.0, compute_dtype="bfloat16",
+                               n_freqs=nf,
+                               num_layers=len(params["sigma_net"]))
+    spec32 = spec16._replace(compute_dtype="float32")
+    field = field_from_numpy(params, spec32, dev)
+    pw = fk.pack_weights(field, spec32, dev)
+
+    # ---- field kernel against its plain version
+    def field_err(a, b):
+        """(rgb max abs, sigma max rel) between two (sigma, rgb) pairs."""
+        return (float((a[1] - b[1]).abs().max()),
+                float(((a[0] - b[0]).abs() / b[0].abs().clamp(min=1e-6))
+                      .max()))
+
+    rng = np.random.RandomState(0)
+    field_rows = {}
+    for n in (1 << 20, (1 << 20) - 12345):
+        x = torch.as_tensor(rng.uniform(-1, 1, (3, n)).astype(np.float32),
+                            device=dev)
+        d = torch.as_tensor(rng.randn(3, n).astype(np.float32), device=dev)
+        d = (d / d.norm(dim=0, keepdim=True)).contiguous()
+        k32 = fk.field_eval(pw, spec32, x, d)
+        for spec in (spec32, spec16):
+            k = fk.field_eval(pw, spec, x, d)
+            p = fk.field_eval_plain(pw, spec, x, d)
+            torch.cuda.synchronize()
+            rgb_err, sig_rel = field_err(k, p)
+            f32 = spec.compute_dtype == "float32"
+            # f32: summation order only; bf16: the limits sit below the
+            # control, a kernel that skips the bf16 rounding (the f32
+            # kernel read against the bf16 plain version)
+            tol = (1e-5, 1e-5) if f32 else FIELD_BF16_TOL
+            row = dict(n=n, dtype=spec.compute_dtype, rgb_max_abs=rgb_err,
+                       sigma_max_rel=sig_rel, tol=tol)
+            if not f32:
+                row["control_rgb_max_abs"], row["control_sigma_max_rel"] = \
+                    field_err(k32, p)
+            if n == 1 << 20:
+                row["ms"] = cuda_ms(lambda: fk.field_eval(pw, spec, x, d),
+                                    10)
+                row["plain_ms"] = cuda_ms(
+                    lambda: fk.field_eval_plain(pw, spec, x, d), 3)
+                flops = 2.0 * FIELD_MACS * n
+                row["bound_ms"] = max(
+                    flops / (PEAK_F32 if f32 else PEAK_BF16),
+                    (FIELD_IO * n + pw.numel() * 4) / PEAK_BYTES) * 1e3
+                field_rows[spec.compute_dtype] = row
+            emit("field_kernel", **row)
+            assert rgb_err <= tol[0] and sig_rel <= tol[1], row
+            # the check must be able to fail the control
+            assert f32 or (row["control_rgb_max_abs"] > tol[0]
+                           or row["control_sigma_max_rel"] > tol[1]), row
+
+    # ---- the bench scene (bench.py:45-147)
+    H = W = 800
+    r0, dx = 0.45, 0.05
+    c = np.arange(-r0, r0 + 1e-6, dx)
+    xx, yy, zz = np.meshgrid(c, c, c, indexing="ij")
+    pts = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], 1)
+    pts = pts[np.linalg.norm(pts, axis=1) <= r0]
+    n = pts.shape[0]
+    t0 = time.perf_counter()
+    consts, state_rest, aux = sim.sim_init(
+        pts, np.full(n, 0.1), np.full(n, 1e5), np.full(n, 1e5),
+        pts[:, 2] < -0.3, dt=1e-2, iters=10, bbox=np.array([2.0, 2.0, 2.0]),
+        kres=7, dx=dx, gravity=(0.0, 0.0, 0.0), stiff=1e5,
+        base=np.array([-1.0, -1.0, -1.0]), device=dev)
+    sim_init_s = time.perf_counter() - t0
+    bst = beam_bend.BeamBendSettings(num_seek_ip=3, max_iter_num=1,
+                                     ip_dx=1.05 * dx, ips_per_tile=256)
+    ist = interactive.InteractiveSettings(
+        spec=spec16, bend=bst, tile=16, samples=128, active_frac=0.5,
+        tile_chunk=32, min_near=0.05, tighten_sampling=True)
+    intr = (1.2 * H, 1.2 * H, W / 2, H / 2)
+    pose_np = np.eye(4, dtype=np.float32)
+    pose_np[:3, 3] = (0, 0, -2.5)
+    pose = torch.as_tensor(pose_np, device=dev)
+    vid = int(np.argmax(consts.ip_pos[:, 2].cpu().numpy()))
+    vid_kernel = consts.IP_kernel[vid]
+    vid_nx = consts.IP_Nx[vid]
+    vid_rest = consts.ip_pos[vid]
+
+    def frame(st, fi):
+        # the GUI's spring drag toward a target orbiting the IP (bench.py)
+        p_ip = vid_rest + torch.einsum("ia,iad->d", vid_nx,
+                                       st.ddof[vid_kernel])
+        ang = torch.tensor(0.25 * fi, device=dev)
+        target = vid_rest + 0.25 * torch.stack(
+            [torch.cos(ang), torch.sin(ang), torch.zeros((), device=dev)])
+        f = torch.clamp(1e5 * (target - p_ip), -5e5, 5e5)
+        return pipeline.interactive_frame_step(
+            ist, consts, st, pw, pose, intr, H, W, 1.0, vid, f)
+
+    # ---- main path 1: 20 chained frames, counts read around the run
+    fk.field_eval.launches = 0
+    tk.render_tiles.launches = 0
+    state = state_rest
+    state0 = None
+    for fi in range(20):
+        state, out = frame(state, fi)
+        if fi == 0:
+            state0 = state
+            drops0 = {k: int(out[k]) for k in
+                      ("dropped_beam", "dropped_window", "n_tile_overflow",
+                       "n_active")}
+        assert bool(torch.isfinite(out["tiles_image"]).all()), fi
+        assert bool(torch.isfinite(state.ddof).all()), fi
+        assert int(out["n_active"]) > 0, fi
+    torch.cuda.synchronize()
+    frame_launches = {"tile": tk.render_tiles.launches,
+                      "field": fk.field_eval.launches}
+    assert frame_launches["tile"] == 20, frame_launches
+    reps = []
+    fi = 20
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, out = frame(state, fi)
+            fi += 1
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 10 * 1e3)
+    assert bool(torch.isfinite(state.ddof).all())
+    emit("frame", n_ip=aux["n_ip"], n_k=aux["n_k"], sim_init_s=sim_init_s,
+         frame0=drops0, launches=frame_launches, ms_per_frame_reps=reps,
+         ms_per_frame_median=float(np.median(reps)))
+
+    # where a frame's time goes: the same chained frames under
+    # torch.profiler; the stages are pipeline.py's named ranges
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            state, out = frame(state, fi)
+            fi += 1
+        torch.cuda.synchronize()
+    emit("frame_profile", **frame_profile(prof, 5, float(np.median(reps))))
+
+    # ---- tile kernel against its plain version at frame 0's state
+    p_def, F, dF = sim.get_ip_info(consts, state0)
+    pack = beam_bend.pack_ip_data_fast(p_def, consts.ip_pos.float(), F, dF)
+    (_, o, bbmin, bbmax, act_ids, act_mask, _, _) = interactive.active_tiles(
+        ist, p_def, pose, intr, H, W, ist.tile_chunk)
+    args, kw, _ = interactive.tile_kernel_inputs(
+        ist, pack, p_def, o, pose, intr, H, W, act_ids, act_mask, bbmin,
+        bbmax)
+    stats = {}
+    tile_row = {}
+    for spec in (spec32, spec16):
+        ko = tk.render_tiles(spec, pw, *args, **kw)
+        po = tk.render_tiles_plain(spec, pw, *args, **kw,
+                                   stats=stats if spec is spec16 else None)
+        torch.cuda.synchronize()
+        err = float((ko[:, 0:5] - po[:, 0:5]).abs().max())
+        drop_eq = bool(torch.equal(ko[:, 5], po[:, 5]))
+        row = dict(dtype=spec.compute_dtype, max_abs_err=err,
+                   dropped_equal=drop_eq,
+                   dropped=float(ko[:, 5, 0].sum()))
+        if spec is spec32:
+            assert err <= 1e-4 and drop_eq, row
+            ko32 = ko
+        else:
+            po_rgb = po[:, 0:3].cpu().numpy()
+            row["psnr_rgb"] = psnr(ko[:, 0:3].cpu().numpy(), po_rgb)
+            # control: the f32 kernel, which skips the bf16 rounding
+            row["control_psnr_rgb"] = psnr(ko32[:, 0:3].cpu().numpy(),
+                                           po_rgb)
+            row["limit_db"] = TILE_BF16_DB
+            row["ms"] = cuda_ms(lambda: tk.render_tiles(spec, pw, *args,
+                                                        **kw), 5)
+            row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
+                spec, pw, *args, **kw), 1)
+            # the reference's operations per executed sample: the field
+            # MLP; one squared distance per window row (8 flops), then
+            # num_seek min passes over the window (tile_kernel.py:406-420)
+            samples = stats["segments"] * tk.T2 * kw["Ks"]
+            mlp_flops = 2.0 * FIELD_MACS * samples
+            bend_flops = (8.0 + kw["num_seek"]) * kw["Wn"] * samples
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in args) + pw.numel() * 4 + ko.numel() * 4
+            row["executed_segments"] = stats["segments"]
+            row["bound_ms"] = max(mlp_flops / PEAK_BF16
+                                  + bend_flops / PEAK_F32,
+                                  nbytes / PEAK_BYTES) * 1e3
+            row["bound_by"] = ("operations" if mlp_flops / PEAK_BF16
+                               + bend_flops / PEAK_F32 > nbytes / PEAK_BYTES
+                               else "bytes")
+            tile_row.update(row)
+        emit("tile_kernel", **row)
+    assert tile_row["control_psnr_rgb"] < TILE_BF16_DB, tile_row
+    assert tile_row["psnr_rgb"] >= TILE_BF16_DB, tile_row
+
+    # ---- main path 2: the fidelity frame (bench.py:222-274), f32, tighten
+    # off, against the committed JAX oracle; then the port's own oracle
+    ist_nt = ist._replace(tighten_sampling=False, spec=spec32)
+    st_fid = state_rest
+    push = torch.tensor([2e3, 0.0, 0.0], device=dev)
+    for _ in range(5):
+        st_fid = sim.sim_step(consts, sim.update_force(consts, st_fid, vid,
+                                                       push))
+    p_def, F, dF = sim.get_ip_info(consts, st_fid)
+    pack = beam_bend.pack_ip_data_fast(p_def, consts.ip_pos.float(), F, dF)
+    fk.field_eval.launches = 0
+    tk.render_tiles.launches = 0
+    out_f = interactive.render_frame_fused(ist_nt, pw, pack, p_def, pose,
+                                           intr, H, W, 1.0)
+    img_f = interactive.tiles_to_image(out_f["tiles_image"], H, W)
+    oracle = np.load(ORACLE)["img"].astype(np.float32)
+    p800 = psnr(img_f, oracle)
+    r = 256
+    intr_r = (1.2 * r, 1.2 * r, r / 2, r / 2)
+    out_fr = interactive.render_frame_fused(ist_nt, pw, pack, p_def, pose,
+                                            intr_r, r, r, 1.0)
+    out_x = interactive.render_frame_exact(
+        ist_nt, pw, p_def, consts.ip_pos.float(), F, dF, pose, intr_r, r, r,
+        1.0, tile_chunk=8)
+    torch.cuda.synchronize()
+    fid_launches = {"tile": tk.render_tiles.launches,
+                    "field": fk.field_eval.launches}
+    p256 = psnr(interactive.tiles_to_image(out_fr["tiles_image"], r, r),
+                interactive.tiles_to_image(out_x["tiles_image"], r, r))
+    diff = np.abs(img_f - oracle).max(axis=-1)
+    emit("fidelity", psnr_800_vs_jax_oracle=p800, jax_own_db=86.93,
+         max_abs_800=float(diff.max()),
+         pixels_over_0p1=int((diff > 0.1).sum()),
+         psnr_256_fused_vs_port_exact=p256, launches=fid_launches,
+         n_active_256=[int(out_fr["n_active"]), int(out_x["n_active"])])
+    assert p800 >= 60.0 and p256 >= 55.0, (p800, p256)
+    assert fid_launches["field"] > 0 and fid_launches["tile"] == 2
+
+    # ---- the port's main_gui as a user runs it
+    gui_out = os.path.join(ROOT, "build", "smoke_gui_frames")
+    cmd = [sys.executable, "-m", "pienerf_tpu_torch.main_gui",
+           "--workspace", "runs/quality_mlp_800", "--exp_name", "cube",
+           "--backbone", "mlp", "--sim_dx", "0.2", "--bound", "0.5",
+           "--W", "400", "--H", "400", "--radius", "2.5", "--frames", "3",
+           "--out_dir", gui_out, "--kres", "4", "--max_iter_num", "1",
+           "--num_seek_IP", "3"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    pngs = sorted(p for p in os.listdir(gui_out) if p.endswith(".png")) \
+        if os.path.isdir(gui_out) else []
+    emit("main_gui", rc=res.returncode, seconds=time.perf_counter() - t0,
+         pngs=pngs, tail=res.stdout.strip().splitlines()[-3:])
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert pngs == [f"frame_{i:04d}.png" for i in range(3)], pngs
+
+    f32row = field_rows["float32"]
+    kernels = [
+        {"name": "field_kernel", "route": "cuda",
+         "source": "pienerf_tpu_torch/csrc/field_kernel.cu",
+         "replaces": "pienerf_tpu/ops/pallas/field_kernel.py:134",
+         "launches": fid_launches["field"],
+         "max_abs_err": f32row["rgb_max_abs"], "ms": f32row["ms"],
+         "plain_ms": f32row["plain_ms"], "bound_ms": f32row["bound_ms"],
+         "bound_by": "operations", "library_ms": None},
+        {"name": "tile_kernel", "route": "cuda",
+         "source": "pienerf_tpu_torch/csrc/tile_kernel.cu",
+         "replaces": "pienerf_tpu/ops/pallas/tile_kernel.py:238",
+         "launches": frame_launches["tile"],
+         "max_abs_err": tile_row["max_abs_err"], "ms": tile_row["ms"],
+         "plain_ms": tile_row["plain_ms"], "bound_ms": tile_row["bound_ms"],
+         "bound_by": tile_row["bound_by"], "library_ms": None},
+    ]
+    assert all(k["launches"] > 0 for k in kernels), kernels
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,296 @@
+// Fused per-tile frame kernel for Hopper (sm_90a): bend -> field ->
+// composite for one 16x16 image tile per thread block.
+//
+// Replaces the Pallas TPU kernel pienerf_tpu/ops/pallas/tile_kernel.py
+// `_make_kernel` (launched by `render_tiles`, :640-742) in the mode of the
+// interactive frame: deformed=True, cut=False, paired=False, one tile per
+// grid step, 64-wide weights. Inputs per tile a: tile_sc[a] (t0, t1,
+// active), bin_start[a] (K+3 prefix counts of the depth-sorted candidates
+// plus the valid count), dirs[a, 0:3, 256], cand[a, P, 16] (p_def, p_ori,
+// F^-1, valid); params[24] holds the camera origin, march bbox, T_thresh,
+// density scale, ip_dx, min_near, t_jitter and the bend reach. Output
+// out[a] [8, 256]: r, g, b, depth, weight sum, dropped candidate slots.
+//
+// What bounds it on this card: operations. Each executed sample costs the
+// 18,752-MAC field MLP plus num_seek nearest-candidate passes over a
+// Wn-row window; a tile reads ~30 KB and writes 8 KB. The work depends on
+// the data (early exit, empty-segment skip), so the bound counts executed
+// segments x 256 rays x Ks samples.
+//
+// Design: one thread per ray, 256 threads per block; every per-sample
+// intermediate stays on chip (registers, and the thread's shared-memory
+// activation columns for the MLP). The TPU kernel's one-hot MXU fetch
+// becomes a plain indexed read from the sub-segment's candidate window,
+// which the block copies to shared memory (Wn x 16 f32) beside the staged
+// weights. The argmin uses a strict `<` in row order, so ties go to the
+// lowest row as jnp.argmin does, and previously chosen rows are excluded
+// instead of overwritten. The per-tile early exit is a block-wide OR
+// (__syncthreads_or) of "this ray's transmittance is still >= T_thresh".
+// Blocks carry nothing across tiles and use no atomics. The build uses
+// -fmad=false so the scalar sample/bend arithmetic rounds as the reference
+// does; the MLP uses explicit FMAs.
+
+#include "field_mlp.cuh"
+
+namespace pienerf {
+
+constexpr int kT2 = 256;   // rays per 16x16 tile
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+
+// NaN-propagating min/max (jnp.minimum / jnp.maximum semantics)
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a > b || isnan(a)) ? a : b;
+}
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a < b || isnan(a)) ? a : b;
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kT2)
+render_tiles_kernel(const float* __restrict__ tile_sc,
+                    const int* __restrict__ bin_start,
+                    const float* __restrict__ params,
+                    const float* __restrict__ dirs,
+                    const float* __restrict__ cand,
+                    const float* __restrict__ pw, float* __restrict__ out,
+                    int BS, int P, int K, int Ks, int Ksb, int Wn,
+                    int num_seek, float bound) {
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* buf = sw + kWFloats;                       // activation columns
+  float* win = buf + 2 * kWd * kT2;                  // [Wn, 16]
+  const int a = blockIdx.x;
+  const int r = threadIdx.x;
+  float* o_t = out + (size_t)a * 8 * kT2;
+  const float* sc = tile_sc + (size_t)a * 8;
+  const int* bs = bin_start + (size_t)a * BS;
+  const float t0 = sc[0];
+  const float t1 = sc[1];
+  if (!(sc[2] > 0.f)) {                              // inactive slot
+    for (int row = 0; row < 8; ++row) o_t[row * kT2 + r] = 0.f;
+    return;
+  }
+  stage_weights<BF16>(sw, pw);                       // synced below
+
+  const float o[3] = {params[0], params[1], params[2]};
+  const float T_thresh = params[9];
+  const float dscale = params[10];
+  const float ip_dx = params[11];
+  const float min_near = params[12];
+  const float t_jit = params[19];
+  const float reach = params[20];
+
+  const float* dr = dirs + (size_t)a * 8 * kT2;
+  const float dv[3] = {dr[r], dr[kT2 + r], dr[2 * kT2 + r]};
+
+  // per-ray slab near/far against the march bbox
+  const float BIG = 3.4e38f;
+  float near = -BIG, far = BIG;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float inv = 1.0f / dv[i];
+    const float ta = (params[3 + i] - o[i]) * inv;
+    const float tb = (params[6 + i] - o[i]) * inv;
+    near = jmax(near, jmin(ta, tb));
+    far = jmin(far, jmax(ta, tb));
+  }
+  const bool thit = near <= far;
+  near = jmax(near, min_near);
+
+  const float dt_s = (t1 - t0) / (float)K;
+  // per-tile halo: the window covers the bend reach at this tile's bin width
+  const int halo = max((int)ceilf(reach / jmax(dt_s, 1e-9f)), 1);
+
+  float sh[16];
+  sh4<BF16>(dv[0], dv[1], dv[2], sh);
+
+  float cum = 0.f;
+  int dropped = 0;
+  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, acc_w = 0.f;
+  const int n_seg = K / Ks;
+  bool alive = true;
+  for (int s = 0; s < n_seg && alive; ++s) {
+    // whole-segment skip: no candidate in the segment's halo window means
+    // every sample is unfound (sigma 0); tile-uniform
+    const int slo_i = s * Ks + 1 - halo;
+    const int shi_i = s * Ks + Ks + 1 + halo;
+    const int slo = slo_i <= 0 ? 0 : bs[slo_i];
+    const int shi = shi_i >= K + 2 ? bs[K + 3] : bs[shi_i];
+    if (shi - slo <= 0) continue;
+
+    float seg_incl = 0.f;
+    float pr = 0.f, pg = 0.f, pb = 0.f, pd = 0.f, pwt = 0.f;
+    for (int sb = 0; sb < Ks / Ksb; ++sb) {
+      const int k0 = s * Ks + sb * Ksb;
+      const int lo_i = k0 + 1 - halo;
+      const int hi_i = k0 + Ksb + 1 + halo;
+      const int lo = lo_i <= 0 ? 0 : bs[lo_i];
+      const int hi = hi_i >= K + 2 ? bs[K + 3] : bs[hi_i];
+      // center the kept rows on the sub-segment's own bins when [lo, hi)
+      // exceeds Wn; the overflow is counted
+      const int own_lo = bs[k0 + 1];
+      const int own_hi = bs[k0 + Ksb + 1];
+      int wa = own_lo - floordiv(Wn - (own_hi - own_lo), 2);
+      wa = min(max(wa, lo), max(lo, hi - Wn));
+      wa = min(max(wa, 0), P - Wn);
+      dropped += max(hi - lo - Wn, 0);
+
+      __syncthreads();                 // previous window (and weights) done
+      const float* src = cand + ((size_t)a * P + wa) * 16;
+      for (int e = r; e < Wn * 16; e += kT2) win[e] = src[e];
+      __syncthreads();
+      const int rlo = lo - wa;
+      const int rhi = hi - wa;
+
+      for (int kk = 0; kk < Ksb; ++kk) {
+        const int k = sb * Ksb + kk;
+        const float t = t0 + (((float)(s * Ks) + (float)k) + t_jit) * dt_s;
+        const float x0 = o[0] + t * dv[0];
+        const float x1 = o[1] + t * dv[1];
+        const float x2 = o[2] + t * dv[2];
+
+        // num_seek rounds: nearest remaining candidate -> single Newton
+        // step p_rest = p_ori + F^-1 (x - p_def) -> per-axis ip_dx reject
+        // -> inverse-distance blend
+        int j0 = -1, j1 = -1;
+        float m0 = 0.f, m1 = 0.f, m2 = 0.f, wsum = 0.f;
+        for (int q = 0; q < num_seek; ++q) {
+          float best = INFINITY;
+          int jb = 0;
+          for (int row = 0; row < Wn; ++row) {
+            const float* cw = win + row * 16;
+            if (row < rlo || row >= rhi || !(cw[15] > 0.f) || row == j0 ||
+                row == j1)
+              continue;
+            const float e0 = x0 - cw[0];
+            const float e1 = x1 - cw[1];
+            const float e2 = x2 - cw[2];
+            float dd = e0 * e0;
+            dd = dd + e1 * e1;
+            dd = dd + e2 * e2;
+            if (dd < best) {
+              best = dd;
+              jb = row;
+            }
+          }
+          if (q == 0) j0 = jb; else if (q == 1) j1 = jb;
+          if (!(best < INFINITY)) continue;        // nothing left: weight 0
+          const float* c = win + jb * 16;
+          const float q0 = x0 - c[0];
+          const float q1 = x1 - c[1];
+          const float q2 = x2 - c[2];
+          float pr0 = c[3] + c[6] * q0;
+          pr0 = pr0 + c[7] * q1;
+          pr0 = pr0 + c[8] * q2;
+          float pr1 = c[4] + c[9] * q0;
+          pr1 = pr1 + c[10] * q1;
+          pr1 = pr1 + c[11] * q2;
+          float pr2 = c[5] + c[12] * q0;
+          pr2 = pr2 + c[13] * q1;
+          pr2 = pr2 + c[14] * q2;
+          const bool ok3 = fabsf(pr0 - c[3]) <= ip_dx &&
+                           fabsf(pr1 - c[4]) <= ip_dx &&
+                           fabsf(pr2 - c[5]) <= ip_dx;
+          const float wgt = ok3 ? 1.0f / sqrtf(fmaxf(best, 1e-16f)) : 0.f;
+          m0 = m0 + wgt * pr0;
+          m1 = m1 + wgt * pr1;
+          m2 = m2 + wgt * pr2;
+          wsum = wsum + wgt;
+        }
+        const bool found = wsum > 0.f;
+        const float invw = 1.0f / fmaxf(wsum, 1e-30f);
+        const float xm0 = found ? m0 * invw : x0;
+        const float xm1 = found ? m1 * invw : x1;
+        const float xm2 = found ? m2 * invw : x2;
+
+        float sigma, cr, cg, cb;
+        field_point<BF16>(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
+                          cb);
+
+        // transmittance composite with the carried optical depth
+        const bool vmask = found && (t >= near) && (t <= far) && thit;
+        const float sg = vmask ? sigma * dscale : 0.f;
+        const float tau = sg * dt_s;
+        const float incl = seg_incl + tau;
+        const float c_before = cum + (incl - tau);
+        seg_incl = incl;
+        const float T_prev = expf(-c_before);
+        const float w = (T_prev >= T_thresh) ? (1.0f - expf(-tau)) * T_prev
+                                             : 0.f;
+        pr = pr + w * cr;
+        pg = pg + w * cg;
+        pb = pb + w * cb;
+        pd = pd + w * t;
+        pwt = pwt + w;
+      }
+    }
+    acc_r += pr;
+    acc_g += pg;
+    acc_b += pb;
+    acc_d += pd;
+    acc_w += pwt;
+    cum += seg_incl;
+    // tile-wide early exit: alive while any ray's T is still >= T_thresh
+    alive = __syncthreads_or(expf(-cum) >= T_thresh) != 0;
+  }
+  o_t[0 * kT2 + r] = acc_r;
+  o_t[1 * kT2 + r] = acc_g;
+  o_t[2 * kT2 + r] = acc_b;
+  o_t[3 * kT2 + r] = acc_d;
+  o_t[4 * kT2 + r] = acc_w;
+  o_t[5 * kT2 + r] = (float)dropped;
+  o_t[6 * kT2 + r] = 0.f;
+  o_t[7 * kT2 + r] = 0.f;
+}
+
+template <bool BF16>
+cudaError_t launch(const float* tile_sc, const int* bin_start,
+                   const float* params, const float* dirs, const float* cand,
+                   const float* pw, float* out, int A, int BS, int P, int K,
+                   int Ks, int Ksb, int Wn, int num_seek, float bound,
+                   cudaStream_t stream) {
+  auto kern = render_tiles_kernel<BF16>;
+  const size_t smem = mlp_smem_bytes(kT2) + (size_t)Wn * 16 * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (A > 0) {
+    kern<<<A, kT2, smem, stream>>>(tile_sc, bin_start, params, dirs, cand,
+                                   pw, out, BS, P, K, Ks, Ksb, Wn, num_seek,
+                                   bound);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace pienerf
+
+extern "C" int pienerf_render_tiles(const void* tile_sc, const void* bin_start,
+                                    const void* params, const void* dirs,
+                                    const void* cand, const void* pw,
+                                    void* out, int A, int BS, int P, int K,
+                                    int Ks, int Ksb, int Wn, int num_seek,
+                                    float bound, int bf16, void* stream) {
+  const float* sc = static_cast<const float*>(tile_sc);
+  const int* bs = static_cast<const int*>(bin_start);
+  const float* pa = static_cast<const float*>(params);
+  const float* di = static_cast<const float*>(dirs);
+  const float* ca = static_cast<const float*>(cand);
+  const float* w = static_cast<const float*>(pw);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      bf16 ? pienerf::launch<true>(sc, bs, pa, di, ca, w, o, A, BS, P, K, Ks,
+                                   Ksb, Wn, num_seek, bound, s)
+           : pienerf::launch<false>(sc, bs, pa, di, ca, w, o, A, BS, P, K, Ks,
+                                    Ksb, Wn, num_seek, bound, s);
+  return (int)err;
+}
+
+extern "C" const char* pienerf_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
