@@ -1,8 +1,15 @@
 """Chip smoke for the PyTorch / CUDA port: builds the kernels, holds each
-against its plain PyTorch version on the card, drives the coupled
-interactive frame through the port's entry points at full width (the bench
-scene of bench.py: 3,053 IPs, 800x800, K=128, the trained checkpoint), and
-checks the frame against the committed exact-bending oracle.
+against its plain PyTorch version on the card, and drives the port's entry
+points at full width on the trained checkpoint:
+
+  main path 1, the coupled interactive frame of bench.py (3,053 IPs,
+    800x800, K=128), checked against the committed exact-bending oracle and
+    the port's own oracle;
+  main path 2, the cut-mode frame at the trex operating point of
+    tools/trex_proxy.py (1008x752, num_seek 1, T_thresh 5e-2, the IPs inside
+    the cut box): the static background cached once, then the bend class
+    every frame, checked against the port's cut-mode oracle;
+  main_gui, plain and with --cut, as a user runs it.
 
     python3 chip_smoke.py
 
@@ -39,6 +46,16 @@ FIELD_IO = 40                     # bytes per point: x, d in; sigma, rgb out
 # kernels read 0.0 / 0.0 and 97.6 dB, the controls 0.040 / 0.18 and 67.1 dB.
 FIELD_BF16_TOL = (1e-2, 2e-2)     # rgb max abs, sigma max rel
 TILE_BF16_DB = 80.0               # PSNR of the rgb rows
+# the static march bends nothing, so its bf16 kernel and plain version
+# encode identical sample positions and differ only in summation order: on
+# an H100 the kernel read 120 dB (the PSNR floor of a 1e-12 MSE) and the
+# control 79.6 dB, too near 80 to show the check can fail; the limit sits
+# between the two
+TILE_BF16_DB_STATIC = 100.0
+# the trex proxy's cut box (tools/trex_proxy.py:42) and the resolution of
+# the cut-mode fidelity frame
+CUT_BOUNDS = [-0.30, 0.75, -0.75, 0.60, -0.45, 0.75]
+CUT_FID_RES = (1008, 752)
 
 
 def emit(phase, **kw):
@@ -109,6 +126,64 @@ def psnr(a, b) -> float:
     return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
 
 
+def tile_check(phase, tk, specs, pw, args, kw,
+               limit_db=TILE_BF16_DB) -> dict:
+    """The tile kernel against its plain version on one pass's inputs,
+    f32 then bf16, one line each; the bf16 kernel must read ``limit_db``
+    or more and the control less. Returns the bf16 row with the kernel's
+    ms, the plain version's ms and the bound."""
+    import torch
+    spec32, spec16 = specs
+    stats = {}
+    for spec in (spec32, spec16):
+        ko = tk.render_tiles(spec, pw, *args, **kw)
+        po = tk.render_tiles_plain(spec, pw, *args, **kw,
+                                   stats=stats if spec is spec16 else None)
+        torch.cuda.synchronize()
+        err = float((ko[:, 0:5] - po[:, 0:5]).abs().max())
+        drop_eq = bool(torch.equal(ko[:, 5], po[:, 5]))
+        row = dict(dtype=spec.compute_dtype, max_abs_err=err,
+                   dropped_equal=drop_eq,
+                   dropped=float(ko[:, 5, 0].sum()))
+        if spec is spec32:
+            assert err <= 1e-4 and drop_eq, row
+            ko32 = ko
+        else:
+            po_rgb = po[:, 0:3].cpu().numpy()
+            row["psnr_rgb"] = psnr(ko[:, 0:3].cpu().numpy(), po_rgb)
+            # control: the f32 kernel, which skips the bf16 rounding
+            row["control_psnr_rgb"] = psnr(ko32[:, 0:3].cpu().numpy(),
+                                           po_rgb)
+            row["limit_db"] = limit_db
+            row["ms"] = cuda_ms(lambda: tk.render_tiles(spec, pw, *args,
+                                                        **kw), 5)
+            row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
+                spec, pw, *args, **kw), 1)
+            # the reference's operations per executed sample: the field
+            # MLP; in the bending modes one squared distance per window
+            # row (8 flops), then num_seek min passes over the window
+            # (tile_kernel.py:406-420). The static march reads no
+            # candidates.
+            samples = stats["segments"] * tk.T2 * kw["Ks"]
+            op_s = 2.0 * FIELD_MACS * samples / PEAK_BF16
+            read = args
+            if kw["deformed"]:
+                op_s += (8.0 + kw["num_seek"]) * kw["Wn"] * samples / PEAK_F32
+            else:
+                read = (args[0], args[2], args[3])   # tile_sc, params, dirs
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in read) + pw.numel() * 4 + ko.numel() * 4
+            row["executed_segments"] = stats["segments"]
+            row["bound_ms"] = max(op_s, nbytes / PEAK_BYTES) * 1e3
+            row["bound_by"] = ("operations" if op_s > nbytes / PEAK_BYTES
+                               else "bytes")
+            bf16_row = row
+        emit(phase, **row)
+    assert bf16_row["control_psnr_rgb"] < limit_db, bf16_row
+    assert bf16_row["psnr_rgb"] >= limit_db, bf16_row
+    return bf16_row
+
+
 def main() -> None:
     import torch
 
@@ -129,6 +204,16 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+
+    def reset_counts():
+        fk.field_eval.launches = 0
+        tk.render_tiles.launches = dict.fromkeys(tk.MODES, 0)
+
+    def read_counts():
+        tiles = tk.render_tiles.launches
+        return {"field": fk.field_eval.launches,
+                **{f"tile_{m}": k for m, k in tiles.items()}}
+
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, name=kind,
@@ -241,8 +326,7 @@ def main() -> None:
             ist, consts, st, pw, pose, intr, H, W, 1.0, vid, f)
 
     # ---- main path 1: 20 chained frames, counts read around the run
-    fk.field_eval.launches = 0
-    tk.render_tiles.launches = 0
+    reset_counts()
     state = state_rest
     state0 = None
     for fi in range(20):
@@ -256,9 +340,10 @@ def main() -> None:
         assert bool(torch.isfinite(state.ddof).all()), fi
         assert int(out["n_active"]) > 0, fi
     torch.cuda.synchronize()
-    frame_launches = {"tile": tk.render_tiles.launches,
-                      "field": fk.field_eval.launches}
-    assert frame_launches["tile"] == 20, frame_launches
+    frame_launches = read_counts()
+    assert frame_launches == {"field": 0, "tile_deformed": 20,
+                              "tile_static": 0, "tile_cut": 0}, \
+        frame_launches
     reps = []
     fi = 20
     for _ in range(3):
@@ -294,54 +379,10 @@ def main() -> None:
     args, kw, _ = interactive.tile_kernel_inputs(
         ist, pack, p_def, o, pose, intr, H, W, act_ids, act_mask, bbmin,
         bbmax)
-    stats = {}
-    tile_row = {}
-    for spec in (spec32, spec16):
-        ko = tk.render_tiles(spec, pw, *args, **kw)
-        po = tk.render_tiles_plain(spec, pw, *args, **kw,
-                                   stats=stats if spec is spec16 else None)
-        torch.cuda.synchronize()
-        err = float((ko[:, 0:5] - po[:, 0:5]).abs().max())
-        drop_eq = bool(torch.equal(ko[:, 5], po[:, 5]))
-        row = dict(dtype=spec.compute_dtype, max_abs_err=err,
-                   dropped_equal=drop_eq,
-                   dropped=float(ko[:, 5, 0].sum()))
-        if spec is spec32:
-            assert err <= 1e-4 and drop_eq, row
-            ko32 = ko
-        else:
-            po_rgb = po[:, 0:3].cpu().numpy()
-            row["psnr_rgb"] = psnr(ko[:, 0:3].cpu().numpy(), po_rgb)
-            # control: the f32 kernel, which skips the bf16 rounding
-            row["control_psnr_rgb"] = psnr(ko32[:, 0:3].cpu().numpy(),
-                                           po_rgb)
-            row["limit_db"] = TILE_BF16_DB
-            row["ms"] = cuda_ms(lambda: tk.render_tiles(spec, pw, *args,
-                                                        **kw), 5)
-            row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
-                spec, pw, *args, **kw), 1)
-            # the reference's operations per executed sample: the field
-            # MLP; one squared distance per window row (8 flops), then
-            # num_seek min passes over the window (tile_kernel.py:406-420)
-            samples = stats["segments"] * tk.T2 * kw["Ks"]
-            mlp_flops = 2.0 * FIELD_MACS * samples
-            bend_flops = (8.0 + kw["num_seek"]) * kw["Wn"] * samples
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in args) + pw.numel() * 4 + ko.numel() * 4
-            row["executed_segments"] = stats["segments"]
-            row["bound_ms"] = max(mlp_flops / PEAK_BF16
-                                  + bend_flops / PEAK_F32,
-                                  nbytes / PEAK_BYTES) * 1e3
-            row["bound_by"] = ("operations" if mlp_flops / PEAK_BF16
-                               + bend_flops / PEAK_F32 > nbytes / PEAK_BYTES
-                               else "bytes")
-            tile_row.update(row)
-        emit("tile_kernel", **row)
-    assert tile_row["control_psnr_rgb"] < TILE_BF16_DB, tile_row
-    assert tile_row["psnr_rgb"] >= TILE_BF16_DB, tile_row
+    tile_row = tile_check("tile_kernel", tk, (spec32, spec16), pw, args, kw)
 
-    # ---- main path 2: the fidelity frame (bench.py:222-274), f32, tighten
-    # off, against the committed JAX oracle; then the port's own oracle
+    # ---- main path 1, fidelity (bench.py:222-274): f32, tighten off,
+    # against the committed JAX oracle and the port's own oracle
     ist_nt = ist._replace(tighten_sampling=False, spec=spec32)
     st_fid = state_rest
     push = torch.tensor([2e3, 0.0, 0.0], device=dev)
@@ -350,13 +391,22 @@ def main() -> None:
                                                        push))
     p_def, F, dF = sim.get_ip_info(consts, st_fid)
     pack = beam_bend.pack_ip_data_fast(p_def, consts.ip_pos.float(), F, dF)
-    fk.field_eval.launches = 0
-    tk.render_tiles.launches = 0
+    reset_counts()
     out_f = interactive.render_frame_fused(ist_nt, pw, pack, p_def, pose,
                                            intr, H, W, 1.0)
     img_f = interactive.tiles_to_image(out_f["tiles_image"], H, W)
     oracle = np.load(ORACLE)["img"].astype(np.float32)
     p800 = psnr(img_f, oracle)
+    # the port's own oracle at the same 800x800, K=128: settles whether the
+    # gap to the JAX oracle is the port's bending or field arithmetic
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_x800 = interactive.render_frame_exact(
+        ist_nt, pw, p_def, consts.ip_pos.float(), F, dF, pose, intr, H, W,
+        1.0, tile_chunk=8)
+    torch.cuda.synchronize()
+    exact800_s = time.perf_counter() - t0
+    img_x800 = interactive.tiles_to_image(out_x800["tiles_image"], H, W)
     r = 256
     intr_r = (1.2 * r, 1.2 * r, r / 2, r / 2)
     out_fr = interactive.render_frame_fused(ist_nt, pw, pack, p_def, pose,
@@ -365,36 +415,213 @@ def main() -> None:
         ist_nt, pw, p_def, consts.ip_pos.float(), F, dF, pose, intr_r, r, r,
         1.0, tile_chunk=8)
     torch.cuda.synchronize()
-    fid_launches = {"tile": tk.render_tiles.launches,
-                    "field": fk.field_eval.launches}
+    fid_launches = read_counts()
     p256 = psnr(interactive.tiles_to_image(out_fr["tiles_image"], r, r),
                 interactive.tiles_to_image(out_x["tiles_image"], r, r))
     diff = np.abs(img_f - oracle).max(axis=-1)
     emit("fidelity", psnr_800_vs_jax_oracle=p800, jax_own_db=86.93,
          max_abs_800=float(diff.max()),
          pixels_over_0p1=int((diff > 0.1).sum()),
+         psnr_800_fused_vs_port_exact=psnr(img_f, img_x800),
+         psnr_800_port_exact_vs_jax_oracle=psnr(img_x800, oracle),
+         port_exact_800_s=exact800_s,
+         n_active_800=[int(out_f["n_active"]), int(out_x800["n_active"])],
          psnr_256_fused_vs_port_exact=p256, launches=fid_launches,
          n_active_256=[int(out_fr["n_active"]), int(out_x["n_active"])])
     assert p800 >= 60.0 and p256 >= 55.0, (p800, p256)
-    assert fid_launches["field"] > 0 and fid_launches["tile"] == 2
+    assert fid_launches["field"] > 0 and fid_launches["tile_deformed"] == 2
 
-    # ---- the port's main_gui as a user runs it
-    gui_out = os.path.join(ROOT, "build", "smoke_gui_frames")
-    cmd = [sys.executable, "-m", "pienerf_tpu_torch.main_gui",
-           "--workspace", "runs/quality_mlp_800", "--exp_name", "cube",
-           "--backbone", "mlp", "--sim_dx", "0.2", "--bound", "0.5",
-           "--W", "400", "--H", "400", "--radius", "2.5", "--frames", "3",
-           "--out_dir", gui_out, "--kres", "4", "--max_iter_num", "1",
-           "--num_seek_IP", "3"]
+    # ---- main path 2: the cut-mode frame at the trex operating point
+    # (tools/trex_proxy.py:206-253) on the committed field: the bench
+    # sphere's IPs strictly inside the cut box, the lowest 12% in z pinned
+    # (trex_proxy.py:167), the static class cached once per camera
+    Hc, Wc = 752, 1008
+    fc = 0.9 * 756
+    intr_c = (fc, fc, Wc / 2.0, Hc / 2.0)
+    cbox = np.asarray(CUT_BOUNDS)
+    pts_c = pts[np.all((pts > cbox[0::2]) & (pts < cbox[1::2]), axis=1)]
+    nc = pts_c.shape[0]
+    pin_c = pts_c[:, 2] < np.quantile(pts_c[:, 2], 0.12)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
-    pngs = sorted(p for p in os.listdir(gui_out) if p.endswith(".png")) \
-        if os.path.isdir(gui_out) else []
-    emit("main_gui", rc=res.returncode, seconds=time.perf_counter() - t0,
-         pngs=pngs, tail=res.stdout.strip().splitlines()[-3:])
-    assert res.returncode == 0, res.stderr[-4000:]
-    assert pngs == [f"frame_{i:04d}.png" for i in range(3)], pngs
+    consts_c, rest_c, aux_c = sim.sim_init(
+        pts_c, np.full(nc, 0.1), np.full(nc, 1e5), np.full(nc, 1e5), pin_c,
+        dt=1e-2, iters=10, bbox=np.array([2.0, 2.0, 2.0]), kres=7, dx=dx,
+        gravity=(0.0, 0.0, 0.0), stiff=1e5,
+        base=np.array([-1.0, -1.0, -1.0]), device=dev)
+    sim_init_c_s = time.perf_counter() - t0
+    cb = torch.tensor(CUT_BOUNDS, dtype=torch.float32, device=dev)
+    ist_c = interactive.InteractiveSettings(
+        spec=spec16, bend=beam_bend.BeamBendSettings(
+            num_seek_ip=1, max_iter_num=1, ip_dx=1.05 * dx, ips_per_tile=256),
+        tile=16, samples=128, active_frac=0.5, tile_chunk=32, min_near=0.05,
+        T_thresh=5e-2, cut=True, bound=1.0, bend_window=64,
+        cut_static_frac=0.95)
+    vid_c = int(np.argmax(consts_c.ip_pos[:, 2].cpu().numpy()))
+    vk_c, vnx_c = consts_c.IP_kernel[vid_c], consts_c.IP_Nx[vid_c]
+    vrest_c = consts_c.ip_pos[vid_c]
+
+    def cut_frame(st, fi, cache):
+        # spring drag toward a target orbiting at radius 0.2
+        # (trex_proxy.py:245-250)
+        p_ip = vrest_c + torch.einsum("ia,iad->d", vnx_c, st.ddof[vk_c])
+        ang = torch.tensor(0.25 * fi, device=dev)
+        target = vrest_c + 0.2 * torch.stack(
+            [torch.cos(ang), torch.sin(ang), torch.zeros((), device=dev)])
+        f = torch.clamp(1e5 * (target - p_ip), -5e5, 5e5)
+        return pipeline.interactive_frame_step(
+            ist_c, consts_c, st, pw, pose, intr_c, Hc, Wc, 1.0, vid_c, f, cb,
+            static_cache=cache)
+
+    reset_counts()
+    cache = interactive.render_static_cache(ist_c, pw, pose, intr_c, Hc, Wc,
+                                            cb)
+    state = rest_c
+    for fi in range(20):
+        state, out = cut_frame(state, fi, cache)
+        if fi == 0:
+            state0_c = state
+            cut0 = {k: int(out[k]) for k in
+                    ("n_active", "dropped_beam", "dropped_window",
+                     "n_tile_overflow")}
+        assert bool(torch.isfinite(out["tiles_image"]).all()), fi
+        assert bool(torch.isfinite(state.ddof).all()), fi
+    torch.cuda.synchronize()
+    cut_launches = read_counts()
+    assert cut_launches == {"field": 0, "tile_deformed": 0,
+                            "tile_static": 1, "tile_cut": 20}, cut_launches
+    reps = []
+    fi = 20
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, out = cut_frame(state, fi, cache)
+            fi += 1
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 10 * 1e3)
+    assert bool(torch.isfinite(state.ddof).all())
+    cache_ms = cuda_ms(lambda: interactive.render_static_cache(
+        ist_c, pw, pose, intr_c, Hc, Wc, cb), 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            state, out = cut_frame(state, fi, cache)
+            fi += 1
+        torch.cuda.synchronize()
+    cut_profile = frame_profile(prof, 5, float(np.median(reps)))
+
+    # the two classes, and the cache's bit-exact property
+    # (test_cut_static_cache_bit_exact) on frame 0's state
+    o_c, bbmin_c, bbmax_c, bend_c, static_c = interactive.cut_classes(
+        ist_c, pose, intr_c, Hc, Wc, cb)
+    cut0.update(n_bend=int(bend_c[2]), n_static=int(static_c[2]),
+                bend_slots=int(bend_c[0].shape[0]),
+                static_slots=int(static_c[0].shape[0]))
+    p_def, F, dF = sim.get_ip_info(consts_c, state0_c)
+    pack = beam_bend.pack_ip_data_fast(p_def, consts_c.ip_pos.float(), F, dF)
+    fargs = (ist_c, pw, pack, p_def, pose, intr_c, Hc, Wc, 1.0, cb)
+    out_cc = interactive.render_frame_fused(*fargs, static_cache=cache)
+    out_cu = interactive.render_frame_fused(*fargs)
+    cache_exact = (all(torch.equal(out_cc[k], out_cu[k]) for k in
+                       ("tiles_image", "tiles_depth", "tiles_ws"))
+                   and all(int(out_cc[k]) == int(out_cu[k]) for k in cut0
+                           if k in out_cc))
+    emit("cut_frame", n_ip=aux_c["n_ip"], n_pinned=int(pin_c.sum()),
+         n_k=aux_c["n_k"], sim_init_s=sim_init_c_s, frame0=cut0,
+         launches=cut_launches, ms_per_frame_reps=reps,
+         ms_per_frame_median=float(np.median(reps)), cache_ms=cache_ms,
+         cache_bit_exact=cache_exact)
+    emit("cut_frame_profile", **cut_profile)
+    assert cache_exact
+    assert cut0["n_tile_overflow"] == 0 and cut0["n_bend"] > 0 \
+        and cut0["n_active"] == cut0["n_bend"] + cut0["n_static"], cut0
+
+    # ---- the static and cut modes against their plain versions, on that
+    # frame's static-class and bend-class inputs
+    specs = (spec32, spec16)
+    args, kw, _ = interactive.tile_kernel_inputs(
+        ist_c, pack, p_def, o_c, pose, intr_c, Hc, Wc, static_c[0],
+        static_c[1], bbmin_c, bbmax_c, deformed=False)
+    static_row = tile_check("tile_kernel_static", tk, specs, pw, args, kw,
+                            limit_db=TILE_BF16_DB_STATIC)
+    args, kw, _ = interactive.tile_kernel_inputs(
+        ist_c, pack, p_def, o_c, pose, intr_c, Hc, Wc, bend_c[0], bend_c[1],
+        bbmin_c, bbmax_c, deformed=True, cut=True, cut_bounds=cb)
+    cut_row = tile_check("tile_kernel_cut", tk, specs, pw, args, kw)
+
+    # ---- main path 2, fidelity: f32, five pushes from rest, the fused cut
+    # frame against the port's cut-mode oracle over every tile that hits
+    # the scene box (active_frac 1: no slot cap)
+    ist_c32 = ist_c._replace(spec=spec32)
+    st_fid = rest_c
+    for _ in range(5):
+        st_fid = sim.sim_step(consts_c, sim.update_force(consts_c, st_fid,
+                                                         vid_c, push))
+    p_def, F, dF = sim.get_ip_info(consts_c, st_fid)
+    pack = beam_bend.pack_ip_data_fast(p_def, consts_c.ip_pos.float(), F, dF)
+    Wf, Hf = CUT_FID_RES
+    ff = 0.9 * (756 if Wf == 1008 else Hf)
+    intr_f = (ff, ff, Wf / 2.0, Hf / 2.0)
+    reset_counts()
+    out_f = interactive.render_frame_fused(ist_c32, pw, pack, p_def, pose,
+                                           intr_f, Hf, Wf, 1.0, cb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_x = interactive.render_frame_exact(
+        ist_c32._replace(active_frac=1.0), pw, p_def,
+        consts_c.ip_pos.float(), F, dF, pose, intr_f, Hf, Wf, 1.0,
+        tile_chunk=8, cut_bounds=cb)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    cfid_launches = read_counts()
+    img_f = interactive.tiles_to_image(out_f["tiles_image"], Hf, Wf)
+    img_x = interactive.tiles_to_image(out_x["tiles_image"], Hf, Wf)
+    pcut = psnr(img_f, img_x)
+    # the same frame unbent: how far the bending moves the pixels at all
+    out_s = interactive.render_frame_fused(
+        ist_c32._replace(deformed=False, active_frac=1.0), pw, pack, p_def,
+        pose, intr_f, Hf, Wf, 1.0, cb)
+    img_s = interactive.tiles_to_image(out_s["tiles_image"], Hf, Wf)
+    diff = np.abs(img_f - img_x).max(axis=-1)
+    emit("cut_fidelity", resolution=[Wf, Hf], focal=ff, psnr=pcut,
+         limit_db=55.0, psnr_fused_vs_unbent=psnr(img_f, img_s),
+         pixels_bent_over_0p1=int(
+             (np.abs(img_f - img_s).max(axis=-1) > 0.1).sum()),
+         max_abs=float(diff.max()),
+         pixels_over_0p1=int((diff > 0.1).sum()), oracle_s=oracle_s,
+         n_active=[int(out_f["n_active"]), int(out_x["n_active"])],
+         n_tile_overflow=[int(out_f["n_tile_overflow"]),
+                          int(out_x["n_tile_overflow"])],
+         dropped_window=int(out_f["dropped_window"]),
+         launches=cfid_launches)
+    assert int(out_x["n_tile_overflow"]) == 0
+    assert int(out_f["n_active"]) == int(out_x["n_active"])
+    assert cfid_launches["tile_cut"] == 1 and cfid_launches["field"] > 0
+    assert pcut >= 55.0, pcut
+
+    # ---- the port's main_gui as a user runs it, plain and with --cut
+    def main_gui(phase, extra):
+        out_dir = os.path.join(ROOT, "build", f"smoke_{phase}_frames")
+        cmd = [sys.executable, "-m", "pienerf_tpu_torch.main_gui",
+               "--workspace", "runs/quality_mlp_800", "--exp_name", "cube",
+               "--backbone", "mlp", "--sim_dx", "0.2", "--bound", "0.5",
+               "--W", "400", "--H", "400", "--radius", "2.5", "--frames",
+               "3", "--out_dir", out_dir, "--kres", "4", "--max_iter_num",
+               "1", "--num_seek_IP", "3"] + extra
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        pngs = sorted(p for p in os.listdir(out_dir) if p.endswith(".png")) \
+            if os.path.isdir(out_dir) else []
+        emit(phase, rc=res.returncode, seconds=time.perf_counter() - t0,
+             pngs=pngs, tail=res.stdout.strip().splitlines()[-3:])
+        assert res.returncode == 0, res.stderr[-4000:]
+        assert pngs == [f"frame_{i:04d}.png" for i in range(3)], pngs
+
+    main_gui("main_gui", [])
+    main_gui("main_gui_cut", ["--cut", "--cut_bounds", "0.0", "0.5", "-0.5",
+                              "0.5", "-0.5", "0.5"])
 
     f32row = field_rows["float32"]
     kernels = [
@@ -405,14 +632,21 @@ def main() -> None:
          "max_abs_err": f32row["rgb_max_abs"], "ms": f32row["ms"],
          "plain_ms": f32row["plain_ms"], "bound_ms": f32row["bound_ms"],
          "bound_by": "operations", "library_ms": None},
-        {"name": "tile_kernel", "route": "cuda",
-         "source": "pienerf_tpu_torch/csrc/tile_kernel.cu",
-         "replaces": "pienerf_tpu/ops/pallas/tile_kernel.py:238",
-         "launches": frame_launches["tile"],
-         "max_abs_err": tile_row["max_abs_err"], "ms": tile_row["ms"],
-         "plain_ms": tile_row["plain_ms"], "bound_ms": tile_row["bound_ms"],
-         "bound_by": tile_row["bound_by"], "library_ms": None},
     ]
+    # the tile kernel's modes: deformed on main path 1, static and cut on
+    # main path 2 (its cache pass and its 20 frames)
+    for name, row, launches in (
+            ("tile_kernel", tile_row, frame_launches["tile_deformed"]),
+            ("tile_kernel_static", static_row, cut_launches["tile_static"]),
+            ("tile_kernel_cut", cut_row, cut_launches["tile_cut"])):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "pienerf_tpu_torch/csrc/tile_kernel.cu",
+             "replaces": "pienerf_tpu/ops/pallas/tile_kernel.py:238",
+             "launches": launches, "max_abs_err": row["max_abs_err"],
+             "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": None})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

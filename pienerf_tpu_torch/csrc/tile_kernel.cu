@@ -2,20 +2,31 @@
 // composite for one 16x16 image tile per thread block.
 //
 // Replaces the Pallas TPU kernel pienerf_tpu/ops/pallas/tile_kernel.py
-// `_make_kernel` (launched by `render_tiles`, :640-742) in the mode of the
-// interactive frame: deformed=True, cut=False, paired=False, one tile per
-// grid step, 64-wide weights. Inputs per tile a: tile_sc[a] (t0, t1,
-// active), bin_start[a] (K+3 prefix counts of the depth-sorted candidates
-// plus the valid count), dirs[a, 0:3, 256], cand[a, P, 16] (p_def, p_ori,
-// F^-1, valid); params[24] holds the camera origin, march bbox, T_thresh,
-// density scale, ip_dx, min_near, t_jitter and the bend reach. Output
-// out[a] [8, 256]: r, g, b, depth, weight sum, dropped candidate slots.
+// `_make_kernel` (launched by `render_tiles`, :640-742) with paired=False,
+// one tile per grid step and 64-wide weights, in its three frame modes,
+// each a compile-time instantiation:
+//   deformed (DEFORMED, !CUT): bend every sample; skip a segment with no
+//     candidate in its halo window;
+//   static (!DEFORMED): the march without bending (xm = x, found = true);
+//     the candidate window is never staged or read, no segment skip;
+//   cut (DEFORMED, CUT): bend every sample as in deformed mode, then keep
+//     the bent position only strictly inside the cut box params[13:19]
+//     (x > min && x < max per axis); outside it the sample renders unbent
+//     with found = true (tile_kernel.py:480-493); no segment skip
+//     (:593-608).
+// Inputs per tile a: tile_sc[a] (t0, t1, active), bin_start[a] (K+3 prefix
+// counts of the depth-sorted candidates plus the valid count),
+// dirs[a, 0:3, 256], cand[a, P, 16] (p_def, p_ori, F^-1, valid); params[24]
+// holds the camera origin, march bbox, T_thresh, density scale, ip_dx,
+// min_near, the cut box, t_jitter and the bend reach. Output out[a]
+// [8, 256]: r, g, b, depth, weight sum, dropped candidate slots (0 in
+// static mode).
 //
 // What bounds it on this card: operations. Each executed sample costs the
-// 18,752-MAC field MLP plus num_seek nearest-candidate passes over a
-// Wn-row window; a tile reads ~30 KB and writes 8 KB. The work depends on
-// the data (early exit, empty-segment skip), so the bound counts executed
-// segments x 256 rays x Ks samples.
+// 18,752-MAC field MLP plus, in the bending modes, num_seek
+// nearest-candidate passes over a Wn-row window; a tile reads ~30 KB and
+// writes 8 KB. The work depends on the data (early exit, empty-segment
+// skip), so the bound counts executed segments x 256 rays x Ks samples.
 //
 // Design: one thread per ray, 256 threads per block; every per-sample
 // intermediate stays on chip (registers, and the thread's shared-memory
@@ -25,10 +36,11 @@
 // weights. The argmin uses a strict `<` in row order, so ties go to the
 // lowest row as jnp.argmin does, and previously chosen rows are excluded
 // instead of overwritten. The per-tile early exit is a block-wide OR
-// (__syncthreads_or) of "this ray's transmittance is still >= T_thresh".
-// Blocks carry nothing across tiles and use no atomics. The build uses
-// -fmad=false so the scalar sample/bend arithmetic rounds as the reference
-// does; the MLP uses explicit FMAs.
+// (__syncthreads_or) of "this ray's transmittance is still >= T_thresh",
+// the only segment-level control flow besides the deformed mode's
+// tile-uniform skip. Blocks carry nothing across tiles and use no atomics.
+// The build uses -fmad=false so the scalar sample, bend and cut-box
+// arithmetic rounds as the reference does; the MLP uses explicit FMAs.
 
 #include "field_mlp.cuh"
 
@@ -50,7 +62,7 @@ __device__ __forceinline__ float jmin(float a, float b) {
   return (a < b || isnan(a)) ? a : b;
 }
 
-template <bool BF16>
+template <bool BF16, bool DEFORMED, bool CUT>
 __global__ void __launch_bounds__(kT2)
 render_tiles_kernel(const float* __restrict__ tile_sc,
                     const int* __restrict__ bin_start,
@@ -63,7 +75,7 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
   float* buf = sw + kWFloats;                       // activation columns
-  float* win = buf + 2 * kWd * kT2;                  // [Wn, 16]
+  float* win = buf + 2 * kWd * kT2;         // [Wn, 16], bending modes only
   const int a = blockIdx.x;
   const int r = threadIdx.x;
   float* o_t = out + (size_t)a * 8 * kT2;
@@ -75,7 +87,8 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
     for (int row = 0; row < 8; ++row) o_t[row * kT2 + r] = 0.f;
     return;
   }
-  stage_weights<BF16>(sw, pw);                       // synced below
+  stage_weights<BF16>(sw, pw);   // bending modes sync at the first window
+  if constexpr (!DEFORMED) __syncthreads();
 
   const float o[3] = {params[0], params[1], params[2]};
   const float T_thresh = params[9];
@@ -84,6 +97,9 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   const float min_near = params[12];
   const float t_jit = params[19];
   const float reach = params[20];
+  float box[6];                         // cut box (x, y, z min/max), CUT only
+#pragma unroll
+  for (int i = 0; i < 6; ++i) box[i] = CUT ? params[13 + i] : 0.f;
 
   const float* dr = dirs + (size_t)a * 8 * kT2;
   const float dv[3] = {dr[r], dr[kT2 + r], dr[2 * kT2 + r]};
@@ -104,7 +120,8 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
 
   const float dt_s = (t1 - t0) / (float)K;
   // per-tile halo: the window covers the bend reach at this tile's bin width
-  const int halo = max((int)ceilf(reach / jmax(dt_s, 1e-9f)), 1);
+  const int halo =
+      DEFORMED ? max((int)ceilf(reach / jmax(dt_s, 1e-9f)), 1) : 0;
 
   float sh[16];
   sh4<BF16>(dv[0], dv[1], dv[2], sh);
@@ -115,37 +132,42 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   const int n_seg = K / Ks;
   bool alive = true;
   for (int s = 0; s < n_seg && alive; ++s) {
-    // whole-segment skip: no candidate in the segment's halo window means
-    // every sample is unfound (sigma 0); tile-uniform
-    const int slo_i = s * Ks + 1 - halo;
-    const int shi_i = s * Ks + Ks + 1 + halo;
-    const int slo = slo_i <= 0 ? 0 : bs[slo_i];
-    const int shi = shi_i >= K + 2 ? bs[K + 3] : bs[shi_i];
-    if (shi - slo <= 0) continue;
+    if constexpr (DEFORMED && !CUT) {
+      // whole-segment skip: no candidate in the segment's halo window
+      // means every sample is unfound (sigma 0); tile-uniform
+      const int slo_i = s * Ks + 1 - halo;
+      const int shi_i = s * Ks + Ks + 1 + halo;
+      const int slo = slo_i <= 0 ? 0 : bs[slo_i];
+      const int shi = shi_i >= K + 2 ? bs[K + 3] : bs[shi_i];
+      if (shi - slo <= 0) continue;
+    }
 
     float seg_incl = 0.f;
     float pr = 0.f, pg = 0.f, pb = 0.f, pd = 0.f, pwt = 0.f;
     for (int sb = 0; sb < Ks / Ksb; ++sb) {
-      const int k0 = s * Ks + sb * Ksb;
-      const int lo_i = k0 + 1 - halo;
-      const int hi_i = k0 + Ksb + 1 + halo;
-      const int lo = lo_i <= 0 ? 0 : bs[lo_i];
-      const int hi = hi_i >= K + 2 ? bs[K + 3] : bs[hi_i];
-      // center the kept rows on the sub-segment's own bins when [lo, hi)
-      // exceeds Wn; the overflow is counted
-      const int own_lo = bs[k0 + 1];
-      const int own_hi = bs[k0 + Ksb + 1];
-      int wa = own_lo - floordiv(Wn - (own_hi - own_lo), 2);
-      wa = min(max(wa, lo), max(lo, hi - Wn));
-      wa = min(max(wa, 0), P - Wn);
-      dropped += max(hi - lo - Wn, 0);
+      int rlo = 0, rhi = 0;
+      if constexpr (DEFORMED) {
+        const int k0 = s * Ks + sb * Ksb;
+        const int lo_i = k0 + 1 - halo;
+        const int hi_i = k0 + Ksb + 1 + halo;
+        const int lo = lo_i <= 0 ? 0 : bs[lo_i];
+        const int hi = hi_i >= K + 2 ? bs[K + 3] : bs[hi_i];
+        // center the kept rows on the sub-segment's own bins when [lo, hi)
+        // exceeds Wn; the overflow is counted
+        const int own_lo = bs[k0 + 1];
+        const int own_hi = bs[k0 + Ksb + 1];
+        int wa = own_lo - floordiv(Wn - (own_hi - own_lo), 2);
+        wa = min(max(wa, lo), max(lo, hi - Wn));
+        wa = min(max(wa, 0), P - Wn);
+        dropped += max(hi - lo - Wn, 0);
 
-      __syncthreads();                 // previous window (and weights) done
-      const float* src = cand + ((size_t)a * P + wa) * 16;
-      for (int e = r; e < Wn * 16; e += kT2) win[e] = src[e];
-      __syncthreads();
-      const int rlo = lo - wa;
-      const int rhi = hi - wa;
+        __syncthreads();               // previous window (and weights) done
+        const float* src = cand + ((size_t)a * P + wa) * 16;
+        for (int e = r; e < Wn * 16; e += kT2) win[e] = src[e];
+        __syncthreads();
+        rlo = lo - wa;
+        rhi = hi - wa;
+      }
 
       for (int kk = 0; kk < Ksb; ++kk) {
         const int k = sb * Ksb + kk;
@@ -154,59 +176,77 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
         const float x1 = o[1] + t * dv[1];
         const float x2 = o[2] + t * dv[2];
 
-        // num_seek rounds: nearest remaining candidate -> single Newton
-        // step p_rest = p_ori + F^-1 (x - p_def) -> per-axis ip_dx reject
-        // -> inverse-distance blend
-        int j0 = -1, j1 = -1;
-        float m0 = 0.f, m1 = 0.f, m2 = 0.f, wsum = 0.f;
-        for (int q = 0; q < num_seek; ++q) {
-          float best = INFINITY;
-          int jb = 0;
-          for (int row = 0; row < Wn; ++row) {
-            const float* cw = win + row * 16;
-            if (row < rlo || row >= rhi || !(cw[15] > 0.f) || row == j0 ||
-                row == j1)
-              continue;
-            const float e0 = x0 - cw[0];
-            const float e1 = x1 - cw[1];
-            const float e2 = x2 - cw[2];
-            float dd = e0 * e0;
-            dd = dd + e1 * e1;
-            dd = dd + e2 * e2;
-            if (dd < best) {
-              best = dd;
-              jb = row;
+        bool found = true;
+        float xm0 = x0, xm1 = x1, xm2 = x2;
+        if constexpr (DEFORMED) {
+          // num_seek rounds: nearest remaining candidate -> single Newton
+          // step p_rest = p_ori + F^-1 (x - p_def) -> per-axis ip_dx reject
+          // -> inverse-distance blend
+          int j0 = -1, j1 = -1;
+          float m0 = 0.f, m1 = 0.f, m2 = 0.f, wsum = 0.f;
+          for (int q = 0; q < num_seek; ++q) {
+            float best = INFINITY;
+            int jb = 0;
+            for (int row = 0; row < Wn; ++row) {
+              const float* cw = win + row * 16;
+              if (row < rlo || row >= rhi || !(cw[15] > 0.f) || row == j0 ||
+                  row == j1)
+                continue;
+              const float e0 = x0 - cw[0];
+              const float e1 = x1 - cw[1];
+              const float e2 = x2 - cw[2];
+              float dd = e0 * e0;
+              dd = dd + e1 * e1;
+              dd = dd + e2 * e2;
+              if (dd < best) {
+                best = dd;
+                jb = row;
+              }
+            }
+            if (q == 0) j0 = jb; else if (q == 1) j1 = jb;
+            if (!(best < INFINITY)) continue;        // nothing left: weight 0
+            const float* c = win + jb * 16;
+            const float q0 = x0 - c[0];
+            const float q1 = x1 - c[1];
+            const float q2 = x2 - c[2];
+            float pr0 = c[3] + c[6] * q0;
+            pr0 = pr0 + c[7] * q1;
+            pr0 = pr0 + c[8] * q2;
+            float pr1 = c[4] + c[9] * q0;
+            pr1 = pr1 + c[10] * q1;
+            pr1 = pr1 + c[11] * q2;
+            float pr2 = c[5] + c[12] * q0;
+            pr2 = pr2 + c[13] * q1;
+            pr2 = pr2 + c[14] * q2;
+            const bool ok3 = fabsf(pr0 - c[3]) <= ip_dx &&
+                             fabsf(pr1 - c[4]) <= ip_dx &&
+                             fabsf(pr2 - c[5]) <= ip_dx;
+            const float wgt = ok3 ? 1.0f / sqrtf(fmaxf(best, 1e-16f)) : 0.f;
+            m0 = m0 + wgt * pr0;
+            m1 = m1 + wgt * pr1;
+            m2 = m2 + wgt * pr2;
+            wsum = wsum + wgt;
+          }
+          found = wsum > 0.f;
+          const float invw = 1.0f / fmaxf(wsum, 1e-30f);
+          if (found) {
+            xm0 = m0 * invw;
+            xm1 = m1 * invw;
+            xm2 = m2 * invw;
+          }
+          if constexpr (CUT) {
+            // outside the cut box the static scene renders unbent
+            const bool in_cut = x0 > box[0] && x0 < box[1] &&
+                                x1 > box[2] && x1 < box[3] &&
+                                x2 > box[4] && x2 < box[5];
+            if (!in_cut) {
+              found = true;
+              xm0 = x0;
+              xm1 = x1;
+              xm2 = x2;
             }
           }
-          if (q == 0) j0 = jb; else if (q == 1) j1 = jb;
-          if (!(best < INFINITY)) continue;        // nothing left: weight 0
-          const float* c = win + jb * 16;
-          const float q0 = x0 - c[0];
-          const float q1 = x1 - c[1];
-          const float q2 = x2 - c[2];
-          float pr0 = c[3] + c[6] * q0;
-          pr0 = pr0 + c[7] * q1;
-          pr0 = pr0 + c[8] * q2;
-          float pr1 = c[4] + c[9] * q0;
-          pr1 = pr1 + c[10] * q1;
-          pr1 = pr1 + c[11] * q2;
-          float pr2 = c[5] + c[12] * q0;
-          pr2 = pr2 + c[13] * q1;
-          pr2 = pr2 + c[14] * q2;
-          const bool ok3 = fabsf(pr0 - c[3]) <= ip_dx &&
-                           fabsf(pr1 - c[4]) <= ip_dx &&
-                           fabsf(pr2 - c[5]) <= ip_dx;
-          const float wgt = ok3 ? 1.0f / sqrtf(fmaxf(best, 1e-16f)) : 0.f;
-          m0 = m0 + wgt * pr0;
-          m1 = m1 + wgt * pr1;
-          m2 = m2 + wgt * pr2;
-          wsum = wsum + wgt;
         }
-        const bool found = wsum > 0.f;
-        const float invw = 1.0f / fmaxf(wsum, 1e-30f);
-        const float xm0 = found ? m0 * invw : x0;
-        const float xm1 = found ? m1 * invw : x1;
-        const float xm2 = found ? m2 * invw : x2;
 
         float sigma, cr, cg, cb;
         field_point<BF16>(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
@@ -248,14 +288,16 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   o_t[7 * kT2 + r] = 0.f;
 }
 
-template <bool BF16>
+template <bool BF16, bool DEFORMED, bool CUT>
 cudaError_t launch(const float* tile_sc, const int* bin_start,
                    const float* params, const float* dirs, const float* cand,
                    const float* pw, float* out, int A, int BS, int P, int K,
                    int Ks, int Ksb, int Wn, int num_seek, float bound,
                    cudaStream_t stream) {
-  auto kern = render_tiles_kernel<BF16>;
-  const size_t smem = mlp_smem_bytes(kT2) + (size_t)Wn * 16 * sizeof(float);
+  auto kern = render_tiles_kernel<BF16, DEFORMED, CUT>;
+  // the candidate window exists only in the bending modes
+  const size_t smem = mlp_smem_bytes(kT2) +
+                      (DEFORMED ? (size_t)Wn * 16 * sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -267,27 +309,36 @@ cudaError_t launch(const float* tile_sc, const int* bin_start,
   return cudaGetLastError();
 }
 
+using LaunchFn = cudaError_t (*)(const float*, const int*, const float*,
+                                 const float*, const float*, const float*,
+                                 float*, int, int, int, int, int, int, int,
+                                 int, float, cudaStream_t);
+
+// [bf16][mode]: deformed, static, cut
+constexpr LaunchFn kLaunch[2][3] = {
+    {launch<false, true, false>, launch<false, false, false>,
+     launch<false, true, true>},
+    {launch<true, true, false>, launch<true, false, false>,
+     launch<true, true, true>}};
+
 }  // namespace pienerf
 
+// `cut` applies only with `deformed`, as in the Pallas kernel: deformed=0
+// selects the static march whatever `cut` is.
 extern "C" int pienerf_render_tiles(const void* tile_sc, const void* bin_start,
                                     const void* params, const void* dirs,
                                     const void* cand, const void* pw,
                                     void* out, int A, int BS, int P, int K,
                                     int Ks, int Ksb, int Wn, int num_seek,
-                                    float bound, int bf16, void* stream) {
-  const float* sc = static_cast<const float*>(tile_sc);
-  const int* bs = static_cast<const int*>(bin_start);
-  const float* pa = static_cast<const float*>(params);
-  const float* di = static_cast<const float*>(dirs);
-  const float* ca = static_cast<const float*>(cand);
-  const float* w = static_cast<const float*>(pw);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? pienerf::launch<true>(sc, bs, pa, di, ca, w, o, A, BS, P, K, Ks,
-                                   Ksb, Wn, num_seek, bound, s)
-           : pienerf::launch<false>(sc, bs, pa, di, ca, w, o, A, BS, P, K, Ks,
-                                    Ksb, Wn, num_seek, bound, s);
+                                    float bound, int bf16, int deformed,
+                                    int cut, void* stream) {
+  const int mode = !deformed ? 1 : (cut ? 2 : 0);
+  cudaError_t err = pienerf::kLaunch[bf16 ? 1 : 0][mode](
+      static_cast<const float*>(tile_sc), static_cast<const int*>(bin_start),
+      static_cast<const float*>(params), static_cast<const float*>(dirs),
+      static_cast<const float*>(cand), static_cast<const float*>(pw),
+      static_cast<float*>(out), A, BS, P, K, Ks, Ksb, Wn, num_seek, bound,
+      static_cast<cudaStream_t>(stream));
   return (int)err;
 }
 

@@ -1,11 +1,13 @@
 """Fused per-tile frame kernel: candidate prep, the CUDA kernel
 ``csrc/tile_kernel.cu`` and its plain PyTorch version.
 
-Port of ``pienerf_tpu.ops.pallas.tile_kernel`` in the mode the interactive
-frame runs (deformed, non-cut, one tile per block, 64-wide weights). The
-static, cut, wide and paired modes are not ported yet (ROADMAP.md §2).
-``render_tiles`` launches the kernel for CUDA tensors and takes
-``render_tiles_plain`` only for CPU tensors.
+Port of ``pienerf_tpu.ops.pallas.tile_kernel`` with one tile per block and
+64-wide weights, in its three frame modes: deformed (bend every sample),
+static (``deformed=False``: no candidates, no bending) and cut
+(``deformed=True, cut=True``: bend only inside the cut box). The wide and
+paired modes are not ported yet (ROADMAP.md §2). ``render_tiles``
+launches the kernel for CUDA tensors and takes ``render_tiles_plain`` only
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +25,15 @@ from pienerf_tpu_torch.models.sh_encoder import sh_encode
 
 T2 = 256          # rays per 16x16 tile
 PACK_FAST = 16    # candidate rows: p_def(3) p_ori(3) F^-1(9) valid(1)
+MODES = ("deformed", "static", "cut")   # launch counters, one per mode
+
+
+def mode_of(deformed: bool, cut: bool) -> str:
+    """The kernel mode of a (deformed, cut) pair; cut needs deformed, as in
+    the Pallas kernel, so (False, True) is the static march."""
+    if not deformed:
+        return "static"
+    return "cut" if cut else "deformed"
 
 
 def prep_candidates(
@@ -107,6 +118,83 @@ def _gather_bs(bs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(bs, 1, idx[:, None])[:, 0]
 
 
+def _window_edges(bs, i_lo, i_hi, K):
+    """Candidate rows [lo, hi) between prefix edges i_lo and i_hi, clamped
+    to the sorted list's ends (row 0 and the appended valid count)."""
+    lo = torch.where(i_lo <= 0, 0, _gather_bs(bs, i_lo.clamp(min=0)))
+    hi = torch.where(i_hi >= K + 2, bs[:, K + 3],
+                     _gather_bs(bs, i_hi.clamp(max=K + 2)))
+    return lo, hi
+
+
+def _bend_segment(x, cand, bs, halo, k_seg, ip_dx, *, K, Ksb, Wn,
+                  num_seek):
+    """Bend one segment's samples x (3 x [n, T2, Ks]) of n tiles through
+    each Ksb-deep sub-segment's candidate window (tile_kernel.py:366-463):
+    num_seek nearest rows, one Newton step, the per-axis ip_dx reject and
+    the inverse-distance blend. Returns (xm, found, window drops [n])."""
+    n, _, Ks = x[0].shape
+    P = cand.shape[1]
+    dev = x[0].device
+    ri = torch.arange(Wn, device=dev)
+    dropped = torch.zeros((n,), dtype=torch.int64, device=dev)
+    xs, found_l = [], []
+    for sb in range(Ks // Ksb):
+        k0 = k_seg + sb * Ksb
+        lo, hi = _window_edges(bs, k0 + 1 - halo, k0 + Ksb + 1 + halo, K)
+        # center the kept rows on the sub-segment's own bins when [lo, hi)
+        # exceeds Wn; the overflow is counted
+        own_lo = bs[:, k0 + 1]
+        own_hi = bs[:, k0 + Ksb + 1]
+        a = own_lo - torch.div(Wn - (own_hi - own_lo), 2,
+                               rounding_mode="floor")
+        a = torch.minimum(torch.maximum(a, lo), torch.maximum(lo, hi - Wn))
+        a = a.clamp(0, P - Wn)
+        dropped += torch.clamp(hi - lo - Wn, min=0)
+        rows = a[:, None] + ri[None, :]
+        cw = torch.gather(cand, 1,
+                          rows[:, :, None].expand(n, Wn, PACK_FAST))
+        row_ok = ((ri[None, :] >= (lo - a)[:, None])
+                  & (ri[None, :] < (hi - a)[:, None])
+                  & (cw[:, :, PACK_FAST - 1] > 0.0))              # [n, Wn]
+
+        xb = [c[..., sb * Ksb:(sb + 1) * Ksb] for c in x]       # [n,T2,Ksb]
+        dd = None
+        for i in range(3):
+            diff = xb[i][:, None] - cw[:, :, i, None, None]     # [n,Wn,T2,Ksb]
+            dd = diff * diff if dd is None else dd + diff * diff
+        dd = torch.where(row_ok[:, :, None, None], dd,
+                         torch.full_like(dd, float("inf")))
+        m = [torch.zeros_like(xb[0]) for _ in range(3)]
+        wsum = torch.zeros_like(xb[0])
+        for _ in range(num_seek):
+            best, j = torch.min(dd, dim=1)                       # first min
+            has = torch.isfinite(best)
+            sel = torch.gather(
+                cw[:, :, None, None, :].expand(n, Wn, T2, Ksb, PACK_FAST),
+                1, j[:, None, :, :, None].expand(n, 1, T2, Ksb,
+                                                 PACK_FAST))[:, 0]
+            sel = torch.where(has[..., None], sel, torch.zeros_like(sel))
+            q = [xb[i] - sel[..., i] for i in range(3)]
+            pr = [sel[..., 3 + dd_i] + sel[..., 6 + 3 * dd_i] * q[0]
+                  + sel[..., 7 + 3 * dd_i] * q[1]
+                  + sel[..., 8 + 3 * dd_i] * q[2] for dd_i in range(3)]
+            ok3 = has
+            for i in range(3):
+                ok3 = ok3 & (torch.abs(pr[i] - sel[..., 3 + i]) <= ip_dx)
+            wgt = torch.where(ok3, torch.rsqrt(torch.clamp(best, min=1e-16)),
+                              torch.zeros_like(best))
+            m = [m[i] + wgt * pr[i] for i in range(3)]
+            wsum = wsum + wgt
+            dd = dd.scatter(1, j[:, None], float("inf"))
+        found = wsum > 0.0
+        invw = 1.0 / torch.clamp(wsum, min=1e-30)
+        xs.append([torch.where(found, m[i] * invw, xb[i]) for i in range(3)])
+        found_l.append(found)
+    xm = [torch.cat([p[i] for p in xs], 2) for i in range(3)]
+    return xm, torch.cat(found_l, 2), dropped
+
+
 def render_tiles_plain(
     spec: NetworkSpec,
     packed_w: torch.Tensor,    # [L, 64, 64]
@@ -116,17 +204,22 @@ def render_tiles_plain(
     dirs: torch.Tensor,        # [A, 8, 256]
     cand: torch.Tensor,        # [A, P, 16]
     *, K: int, Ks: int, Ksb: int, Wn: int, num_seek: int,
+    deformed: bool = True, cut: bool = False,
     stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the tile kernel, vectorised over tiles.
     Loops over segments and sub-segments with per-tile alive and skip
-    masks, so the dropped count follows the kernel's rules. Returns out
-    [A, 8, 256] (r, g, b, depth, ws, dropped, 0, 0). When given,
-    ``stats["segments"]`` counts the (tile, segment) pairs executed, the
-    data-dependent work a bound on the kernel's time is counted from."""
+    masks, so the dropped count follows the kernel's rules. Static mode
+    (``deformed=False``) reads no candidates and bends nothing; cut mode
+    bends every sample, then keeps the bent position only strictly inside
+    the cut box params[13:19] and renders the rest unbent, and drops the
+    empty-segment skip. Returns out [A, 8, 256] (r, g, b, depth, ws,
+    dropped, 0, 0). When given, ``stats["segments"]`` counts the (tile,
+    segment) pairs executed, the data-dependent work a bound on the
+    kernel's time is counted from."""
     dev = tile_sc.device
     cdt = torch_dtype(spec.compute_dtype)
-    A, P = cand.shape[0], cand.shape[1]
+    A = tile_sc.shape[0]
     t0, t1 = tile_sc[:, 0], tile_sc[:, 1]
     active = tile_sc[:, 2] > 0.0
     o = params[0:3]
@@ -147,101 +240,53 @@ def render_tiles_plain(
     near = torch.maximum(near, min_near)
 
     dt_s = (t1 - t0) / K                                          # [A]
-    halo = torch.clamp(torch.ceil(reach / torch.clamp(dt_s, min=1e-9))
-                       .to(torch.int64), min=1)
     sh = sh_encode((d[:, 0], d[:, 1], d[:, 2]),
                    feature_major=True).to(cdt)                  # [16, A, T2]
-    bs = bin_start.to(torch.int64)
+    if deformed:
+        halo = torch.clamp(torch.ceil(reach / torch.clamp(dt_s, min=1e-9))
+                           .to(torch.int64), min=1)
+        bs = bin_start.to(torch.int64)
 
     out = torch.zeros((A, 8, T2), dtype=torch.float32, device=dev)
     cum = torch.zeros((A, T2), device=dev)
     dropped = torch.zeros((A,), dtype=torch.int64, device=dev)
     alive = active.clone()
-    kr = torch.arange(Ksb, device=dev)
     for s in range(K // Ks):
-        slo_i = s * Ks + 1 - halo
-        shi_i = s * Ks + Ks + 1 + halo
-        slo = torch.where(slo_i <= 0, 0, _gather_bs(bs, slo_i.clamp(min=0)))
-        shi = torch.where(shi_i >= K + 2, bs[:, K + 3],
-                          _gather_bs(bs, shi_i.clamp(max=K + 2)))
-        run = alive & ((shi - slo) > 0)
+        run = alive
+        if deformed and not cut:
+            # whole-segment skip: no candidate in the segment's halo window
+            slo, shi = _window_edges(bs, s * Ks + 1 - halo,
+                                     s * Ks + Ks + 1 + halo, K)
+            run = alive & ((shi - slo) > 0)
         idx = torch.nonzero(run)[:, 0]
         n = idx.shape[0]
         if stats is not None:
             stats["segments"] = stats.get("segments", 0) + n
         if n == 0:
             continue
-        tt0, tdt, th = t0[idx], dt_s[idx], halo[idx]
-        tb_ = bs[idx]
+        tdt = dt_s[idx]
+        kk = (s * Ks + torch.arange(Ks, device=dev)).float()
+        t = (t0[idx][:, None, None]
+             + (kk[None, None, :] + t_jit) * tdt[:, None, None]
+             ).expand(n, T2, Ks)
         dd_ = d[idx]                                             # [n,3,T2]
-        xs, found_l, t_l = [], [], []
-        for sb in range(Ks // Ksb):
-            k0 = s * Ks + sb * Ksb
-            lo_i = k0 + 1 - th
-            hi_i = k0 + Ksb + 1 + th
-            lo = torch.where(lo_i <= 0, 0,
-                             _gather_bs(tb_, lo_i.clamp(min=0)))
-            hi = torch.where(hi_i >= K + 2, tb_[:, K + 3],
-                             _gather_bs(tb_, hi_i.clamp(max=K + 2)))
-            own_lo = tb_[:, k0 + 1]
-            own_hi = tb_[:, k0 + Ksb + 1]
-            a = own_lo - torch.div(Wn - (own_hi - own_lo), 2,
-                                   rounding_mode="floor")
-            a = torch.minimum(torch.maximum(a, lo),
-                              torch.maximum(lo, hi - Wn))
-            a = a.clamp(0, P - Wn)
-            dropped[idx] += torch.clamp(hi - lo - Wn, min=0)
-            rows = a[:, None] + torch.arange(Wn, device=dev)[None, :]
-            cw = torch.gather(cand[idx], 1,
-                              rows[:, :, None].expand(n, Wn, PACK_FAST))
-            ri = torch.arange(Wn, device=dev)[None, :]
-            row_ok = ((ri >= (lo - a)[:, None]) & (ri < (hi - a)[:, None])
-                      & (cw[:, :, PACK_FAST - 1] > 0.0))          # [n, Wn]
-
-            # samples [n, T2, Ksb]
-            t = tt0[:, None, None] + (((s * Ks + sb * Ksb + kr).float()
-                                       [None, None, :] + t_jit)
-                                      * tdt[:, None, None])
-            t = t.expand(n, T2, Ksb)
-            x = [o[i] + t * dd_[:, i, :, None] for i in range(3)]
-            dd = None
-            for i in range(3):
-                diff = x[i][:, None] - cw[:, :, i, None, None]   # [n,Wn,T2,Ksb]
-                dd = diff * diff if dd is None else dd + diff * diff
-            dd = torch.where(row_ok[:, :, None, None], dd,
-                             torch.full_like(dd, float("inf")))
-            m = [torch.zeros_like(t) for _ in range(3)]
-            wsum = torch.zeros_like(t)
-            for _ in range(num_seek):
-                best, j = torch.min(dd, dim=1)                   # first min
-                has = torch.isfinite(best)
-                sel = torch.gather(
-                    cw[:, :, None, None, :].expand(n, Wn, T2, Ksb, PACK_FAST),
-                    1, j[:, None, :, :, None].expand(n, 1, T2, Ksb,
-                                                     PACK_FAST))[:, 0]
-                sel = torch.where(has[..., None], sel, torch.zeros_like(sel))
-                q = [x[i] - sel[..., i] for i in range(3)]
-                pr = [sel[..., 3 + dd_i] + sel[..., 6 + 3 * dd_i] * q[0]
-                      + sel[..., 7 + 3 * dd_i] * q[1]
-                      + sel[..., 8 + 3 * dd_i] * q[2] for dd_i in range(3)]
-                ok3 = has
+        x = [o[i] + t * dd_[:, i, :, None] for i in range(3)]   # [n,T2,Ks]
+        if deformed:
+            xm, found, drop = _bend_segment(
+                x, cand[idx], bs[idx], halo[idx], s * Ks, ip_dx, K=K,
+                Ksb=Ksb, Wn=Wn, num_seek=num_seek)
+            dropped[idx] += drop
+            if cut:
+                # outside the cut box the static scene renders unbent
+                in_cut = torch.ones_like(found)
                 for i in range(3):
-                    ok3 = ok3 & (torch.abs(pr[i] - sel[..., 3 + i]) <= ip_dx)
-                wgt = torch.where(ok3, torch.rsqrt(torch.clamp(best,
-                                                               min=1e-16)),
-                                  torch.zeros_like(best))
-                m = [m[i] + wgt * pr[i] for i in range(3)]
-                wsum = wsum + wgt
-                dd = dd.scatter(1, j[:, None], float("inf"))
-            found = wsum > 0.0
-            invw = 1.0 / torch.clamp(wsum, min=1e-30)
-            xs.append([torch.where(found, m[i] * invw, x[i])
-                       for i in range(3)])
-            found_l.append(found)
-            t_l.append(t)
-        xm = [torch.cat([p[i] for p in xs], 2) for i in range(3)]  # [n,T2,Ks]
-        found = torch.cat(found_l, 2)
-        t = torch.cat(t_l, 2)
+                    in_cut = (in_cut & (x[i] > params[13 + 2 * i])
+                              & (x[i] < params[14 + 2 * i]))
+                xm = [torch.where(in_cut, xm[i], x[i]) for i in range(3)]
+                found = found | ~in_cut
+        else:
+            xm = x
+            found = torch.ones((n, T2, Ks), dtype=torch.bool, device=dev)
 
         enc = encode_rows(tuple(c.reshape(-1) for c in xm), spec, cdt)
         shs = sh[:, idx][..., None].expand(16, n, T2, Ks).reshape(16, -1)
@@ -278,10 +323,13 @@ def render_tiles(
     dirs: torch.Tensor,
     cand: torch.Tensor,
     *, K: int, Ks: int, Ksb: int, Wn: int, num_seek: int,
+    deformed: bool = True, cut: bool = False,
 ) -> torch.Tensor:
     """Run the fused tile kernel over A tiles -> out [A, 8, 256].
 
-    CPU tensors take render_tiles_plain; CUDA tensors launch the kernel."""
+    CPU tensors take render_tiles_plain; CUDA tensors launch the kernel in
+    the mode ``mode_of(deformed, cut)`` and count the launch in
+    ``render_tiles.launches[mode]``."""
     A, P = cand.shape[0], cand.shape[1]
     BS = bin_start.shape[1]
     if P < Wn:
@@ -292,11 +340,13 @@ def render_tiles(
         raise ValueError(f"K={K}, Ks={Ks}, Ksb={Ksb} must nest")
     if not 1 <= num_seek <= 3:
         raise ValueError(f"num_seek {num_seek} must be 1..3")
-    kw = dict(K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek)
+    kw = dict(K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
+              deformed=deformed, cut=cut)
     if tile_sc.device.type == "cpu":
         return render_tiles_plain(spec, packed_w, tile_sc, bin_start, params,
                                   dirs, cand, **kw)
     dev = tile_sc.device
+    mode = mode_of(deformed, cut)
     check_kernel_spec(spec, packed_w)
     for t, name, dtype, shape in (
             (tile_sc, "tile_sc", torch.float32, (A, 8)),
@@ -311,16 +361,17 @@ def render_tiles(
     fn = lib.pienerf_render_tiles
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
     rc = fn(tile_sc.data_ptr(), bin_start.data_ptr(), params.data_ptr(),
             dirs.data_ptr(), cand.data_ptr(), packed_w.data_ptr(),
             out.data_ptr(), A, BS, P, K, Ks, Ksb, Wn, num_seek,
-            float(spec.bound), int(spec.compute_dtype == "bfloat16"), stream)
+            float(spec.bound), int(spec.compute_dtype == "bfloat16"),
+            int(deformed), int(cut), stream)
     _build.check(lib, rc, "render_tiles")
-    render_tiles.launches += 1
+    render_tiles.launches[mode] += 1
     return out
 
 
-render_tiles.launches = 0
+render_tiles.launches = dict.fromkeys(MODES, 0)

@@ -10,6 +10,8 @@ and runs the coupled sim + render loop, writing PNG frames:
         --W 400 --H 400 --radius 2.5 --kres 4 --max_iter_num 1 \\
         --num_seek_IP 3 --frames 5 --out_dir gui_frames
 
+``--cut --cut_bounds xmin xmax ymin ymax zmin zmax`` bends only inside the
+box and renders the rest of the scene (``--bound``) as a static background.
 Runs on the card; ``--device cpu`` is the only way onto the CPU.
 """
 
@@ -96,9 +98,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--max_iter_num != 1 runs the XLA render_frame path, not ported "
             "yet (ROADMAP.md queue 1 item 9); pass --max_iter_num 1")
-    if cfg.cut:
-        raise NotImplementedError("--cut is not ported yet (ROADMAP.md "
-                                  "queue 1 item 8)")
     if cfg.sim_bf16_b:
         raise NotImplementedError("--sim_bf16_b is not ported yet "
                                   "(ROADMAP.md queue 1 item 3)")
@@ -122,8 +121,10 @@ def main(argv=None):
         ip_dx=1.05 * cfg.sim_dx)
     ist = interactive.InteractiveSettings(
         spec=spec, bend=bst, tile=16, samples=cfg.render_samples,
-        min_near=cfg.min_near, T_thresh=cfg.T_thresh,
-        tighten_sampling=cfg.tighten_sampling)
+        min_near=cfg.min_near, T_thresh=cfg.T_thresh, cut=cfg.cut,
+        bound=cfg.bound, tighten_sampling=cfg.tighten_sampling)
+    cut_bounds = (torch.tensor(cfg.cut_bounds, dtype=torch.float32,
+                               device=device) if cfg.cut else None)
 
     H = W = 800 if cfg.dataset_type == "synthetic" else min(cfg.H, 800)
     H = (H // 16) * 16
@@ -138,7 +139,7 @@ def main(argv=None):
         for i in range(ns.frames):
             state, out = pipeline.interactive_frame_step(
                 ist, consts, state, pw, pose, cam.intrinsics, H, W, 1.0,
-                ns.force_ip, fvec, substeps=cfg.sim_substeps)
+                ns.force_ip, fvec, cut_bounds, substeps=cfg.sim_substeps)
             if (i % 10 == 0 or cfg.timing_on) and not bool(
                     torch.isfinite(out["tiles_ws"]).all()):
                 raise SystemExit(

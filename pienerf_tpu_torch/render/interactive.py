@@ -1,15 +1,16 @@
 """Interactive frame rendering: tile activity, compaction, candidate prep
 and the fused tile kernel; plus the exact-bending oracle.
 
-Port of ``pienerf_tpu.render.interactive`` for deformed, non-cut frames.
-Cut mode, ``cut_split``, ``render_static_cache``, static frames and the
-XLA tile path ``render_frame`` are not ported yet (ROADMAP.md queue 1
-items 8-9). Every tensor stays on the device of ``p_def``.
+Port of ``pienerf_tpu.render.interactive`` for deformed, static
+(``deformed=False``) and cut frames, with the cut-split into bend and
+static tile classes and the camera-fixed static cache. The XLA tile path
+``render_frame`` is not ported yet (ROADMAP.md queue 1 item 9). Every
+tensor stays on the device of the pose.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,16 +32,36 @@ class InteractiveSettings(NamedTuple):
     min_near: float = 0.05
     density_scale: float = 1.0
     T_thresh: float = 1e-2
+    deformed: bool = True          # False: static frame, no bending
+    cut: bool = False              # bend only inside cut_bounds; the rest
+    #                                renders static
+    bound: float = 1.0             # scene bound: the march box of cut and
+    #                                static frames
     seg_samples: int = 8           # Ks: samples per early-exit segment
     bend_sub: int = 4              # Ksb: samples per bend sub-window
     tighten_sampling: bool = False  # crop each tile's range to its span
     bend_window: int = 64          # Wn candidate rows per sub-window
     gate_tiles: bool = True        # tile active only with >= 1 candidate
+    cut_split: bool = True         # cut mode: tiles whose rays miss the cut
+    #                                box take the static kernel pass
+    cut_static_frac: float = 0.95  # slots of that static class, of n_tiles
 
 
 def _check_supported(st: InteractiveSettings) -> None:
     if st.tile != 16:
         raise ValueError("the fused tile kernel is specialised to 16x16")
+
+
+def _cut_box(st: InteractiveSettings, cut_bounds, device
+             ) -> Optional[torch.Tensor]:
+    """cut_bounds [xmin, xmax, ymin, ymax, zmin, zmax] as f32 in cut mode,
+    None otherwise."""
+    if not st.cut:
+        return None
+    if cut_bounds is None:
+        raise ValueError("cut mode needs cut_bounds [6]")
+    return torch.as_tensor(cut_bounds, dtype=torch.float32,
+                           device=device).reshape(6)
 
 
 def _tile_rays(tids, settings, H, W, pose, intrinsics):
@@ -126,23 +147,40 @@ def _compact_tiles(mask, cap, all_tids):
     return ids[:cap], slot, n, mask.sum() - n
 
 
-def _frame_bbox(p_def):
-    marg = 1e-3
-    return p_def.amin(dim=0) - marg, p_def.amax(dim=0) + marg
+def _scene_box(st, device):
+    """The full scene box +-(bound + 1e-3): cut and static frames march
+    through it, since the field has density anywhere in it."""
+    hi = torch.full((3,), st.bound + 1e-3, dtype=torch.float32,
+                    device=device)
+    return -hi, hi
 
 
-def _a_cap(st, n_tiles, chunk):
-    a_cap = int(n_tiles * st.active_frac)
-    return max(chunk, (a_cap // chunk) * chunk)
+def _cap(frac, n_tiles, chunk):
+    """Slot count: frac of the tiles, rounded down to chunk, >= chunk."""
+    cap = int(n_tiles * frac)
+    return max(chunk, (cap // chunk) * chunk)
+
+
+def _tile_hits(st, bbmin, bbmax, pose, intrinsics, H, W):
+    """Every tile's rays against the march box. Returns (all_tids, o,
+    d_all, near_all, far_all, hit_tile)."""
+    n_tiles = (H // st.tile) * (W // st.tile)
+    all_tids = torch.arange(n_tiles, dtype=torch.int64, device=pose.device)
+    o, d_all = _tile_rays(all_tids, st, H, W, pose, intrinsics)
+    near_all, far_all = _near_far(o, d_all, bbmin, bbmax, st.min_near)
+    return all_tids, o, d_all, near_all, far_all, (near_all < 1e30).any(1)
 
 
 def tile_kernel_inputs(st, ip_pack, p_def, o, pose, intrinsics, H, W,
-                       act_ids, act_mask, bbmin, bbmax):
-    """Per-slot ray data and candidate prep for one tile-kernel pass over
-    a compacted slot list. Returns (args, kw, dropped_beam): ``args`` =
-    (tile_sc, bin_start, params, dirs, cand) and ``kw`` the kernel's
-    static sizes, as ``kernels.tile.render_tiles`` takes them."""
-    dev = p_def.device
+                       act_ids, act_mask, bbmin, bbmax, *, deformed=True,
+                       cut=False, cut_bounds=None, t_jitter=0.5):
+    """Per-slot ray data and, when ``deformed``, candidate prep for one
+    tile-kernel pass over a compacted slot list. Static passes get zero
+    candidates and bin counts, which the kernel does not read. Returns
+    (args, kw, dropped_beam): ``args`` = (tile_sc, bin_start, params, dirs,
+    cand) and ``kw`` the kernel's static sizes and mode, as
+    ``kernels.tile.render_tiles`` takes them."""
+    dev = o.device
     ts = st.tile
     T2 = ts * ts
     K = st.samples
@@ -156,19 +194,29 @@ def tile_kernel_inputs(st, ip_pack, p_def, o, pose, intrinsics, H, W,
     for i in range(3):
         dirs[:, i, :] = d[i]
 
-    axis = _central_axis(d)
-    origin = o.expand(a_cap, 3)
-    tan_half = torch.full((a_cap,), ts * 0.75 / intrinsics[0],
-                          dtype=torch.float32, device=dev)
-    # the crop margin exceeds the bend reach so tightening stays lossless
-    tmarg = (max(3.0 * st.bend.ip_dx,
-                 beam_bend.reach_of(st.bend) + st.bend.ip_dx)
-             if st.tighten_sampling else 0.0)
-    cand, bin_start, n_drop_beam, t0, t1 = tile_kernel.prep_candidates(
-        ip_pack, p_def, origin, axis, tan_half, t0, t1,
-        n_cand=st.bend.ips_per_tile, n_bins=K + 2,
-        beam_margin=beam_bend.margin_of(st.bend), tighten_margin=tmarg)
-    dropped_beam = torch.where(act_mask, n_drop_beam, 0).sum()
+    if deformed:
+        axis = _central_axis(d)
+        origin = o.expand(a_cap, 3)
+        tan_half = torch.full((a_cap,), ts * 0.75 / intrinsics[0],
+                              dtype=torch.float32, device=dev)
+        # cut mode marches the full range (outside the cut box renders the
+        # static scene); the crop margin exceeds the bend reach so
+        # tightening stays lossless
+        tmarg = (max(3.0 * st.bend.ip_dx,
+                     beam_bend.reach_of(st.bend) + st.bend.ip_dx)
+                 if st.tighten_sampling and not cut else 0.0)
+        cand, bin_start, n_drop_beam, t0, t1 = tile_kernel.prep_candidates(
+            ip_pack, p_def, origin, axis, tan_half, t0, t1,
+            n_cand=st.bend.ips_per_tile, n_bins=K + 2,
+            beam_margin=beam_bend.margin_of(st.bend), tighten_margin=tmarg)
+        dropped_beam = torch.where(act_mask, n_drop_beam, 0).sum()
+    else:
+        cand = torch.zeros((a_cap, max(st.bend.ips_per_tile, 64),
+                            tile_kernel.PACK_FAST), dtype=torch.float32,
+                           device=dev)
+        bin_start = torch.zeros((a_cap, K + 4), dtype=torch.int32,
+                                device=dev)
+        dropped_beam = torch.zeros((), dtype=torch.int64, device=dev)
 
     tile_sc = torch.zeros((a_cap, 8), dtype=torch.float32, device=dev)
     tile_sc[:, 0] = t0
@@ -183,7 +231,9 @@ def tile_kernel_inputs(st, ip_pack, p_def, o, pose, intrinsics, H, W,
     params[10] = st.density_scale
     params[11] = st.bend.ip_dx
     params[12] = st.min_near
-    params[19] = 0.5                       # t_jitter: bin centers
+    if cut:
+        params[13:19] = cut_bounds
+    params[19] = t_jitter                  # 0.5: bin centers
     params[20] = beam_bend.reach_of(st.bend)
 
     if K % st.seg_samples == 0:
@@ -193,57 +243,113 @@ def tile_kernel_inputs(st, ip_pack, p_def, o, pose, intrinsics, H, W,
     Ksb = st.bend_sub if Ks % st.bend_sub == 0 else Ks
     kw = dict(K=K, Ks=Ks, Ksb=Ksb,
               Wn=min(st.bend_window, st.bend.ips_per_tile),
-              num_seek=st.bend.num_seek_ip)
+              num_seek=st.bend.num_seek_ip, deformed=deformed, cut=cut)
     return (tile_sc, bin_start, params, dirs, cand), kw, dropped_beam
 
 
 def _fused_tile_pass(st, packed_w, ip_pack, p_def, o, pose, intrinsics,
-                     H, W, act_ids, act_mask, bbmin, bbmax):
-    """Candidate prep and one tile-kernel pass over a compacted slot list.
-    Returns (imgs [A, T2, 3], depths, wss, dropped_beam, dropped_window)."""
+                     H, W, act_ids, act_mask, bbmin, bbmax, **mode):
+    """Candidate prep and one tile-kernel pass over a compacted slot list;
+    ``mode`` as tile_kernel_inputs takes it. Returns (imgs [A, T2, 3],
+    depths, wss, dropped_beam, dropped_window)."""
     args, kw, dropped_beam = tile_kernel_inputs(
         st, ip_pack, p_def, o, pose, intrinsics, H, W, act_ids, act_mask,
-        bbmin, bbmax)
+        bbmin, bbmax, **mode)
     out = tile_kernel.render_tiles(st.spec, packed_w, *args, **kw)
     imgs = out[:, 0:3, :].transpose(1, 2)                         # [A,T2,3]
     dropped_window = torch.where(act_mask, out[:, 5, 0], 0.0).sum()
     return imgs, out[:, 3, :], out[:, 4, :], dropped_beam, dropped_window
 
 
-def _scatter_frame(n_tiles, T2, bg_color, act_ids, act_mask, imgs, depths,
-                   wss):
-    dev = imgs.device
+def _scatter_frame(n_tiles, T2, bg_color, parts):
+    """Composite onto the background and scatter each (ids, mask, imgs,
+    depths, wss) slot list into the frame, in order."""
+    dev = parts[0][2].device
     bg = torch.as_tensor(bg_color, dtype=torch.float32,
                          device=dev).expand(3)
     frame = torch.zeros((n_tiles + 1, T2, 3), device=dev) + bg
     fdepth = torch.zeros((n_tiles + 1, T2), device=dev)
     fws = torch.zeros((n_tiles + 1, T2), device=dev)
-    imgs = imgs + (1.0 - wss)[..., None] * bg
-    safe = torch.where(act_mask, act_ids, n_tiles)
-    frame[safe] = imgs
-    fdepth[safe] = depths
-    fws[safe] = wss
+    for ids, mask, imgs, depths, wss in parts:
+        imgs = imgs + (1.0 - wss)[..., None] * bg
+        safe = torch.where(mask, ids, n_tiles)
+        frame[safe] = imgs
+        fdepth[safe] = depths
+        fws[safe] = wss
     return frame[:n_tiles], fdepth[:n_tiles], fws[:n_tiles]
 
 
 def active_tiles(st, p_def, pose, intrinsics, H, W, chunk):
-    """Tile activity (bbox hit and candidate gate) and slot compaction.
-    Returns (n_tiles, o, bbmin, bbmax, act_ids, act_mask, act_n,
-    overflow)."""
-    ts = st.tile
-    n_tiles = (H // ts) * (W // ts)
-    a_cap = _a_cap(st, n_tiles, chunk)
-    bbmin, bbmax = _frame_bbox(p_def)
-    all_tids = torch.arange(n_tiles, dtype=torch.int64, device=p_def.device)
-    o, d_all = _tile_rays(all_tids, st, H, W, pose, intrinsics)
-    near_all, far_all = _near_far(o, d_all, bbmin, bbmax, st.min_near)
-    hit_tile = (near_all < 1e30).any(dim=1)
-    if st.gate_tiles:
+    """Tile activity and slot compaction: rays against the march box (the
+    deformed IPs' bbox, or the scene box in cut and static frames), and in
+    deformed non-cut frames the candidate gate. Returns (n_tiles, o,
+    bbmin, bbmax, act_ids, act_mask, act_n, overflow)."""
+    if st.deformed and not st.cut:           # the deformed IPs' bbox
+        bbmin, bbmax = p_def.amin(dim=0) - 1e-3, p_def.amax(dim=0) + 1e-3
+    else:
+        bbmin, bbmax = _scene_box(st, pose.device)
+    all_tids, o, d_all, near_all, far_all, hit_tile = _tile_hits(
+        st, bbmin, bbmax, pose, intrinsics, H, W)
+    n_tiles = all_tids.shape[0]
+    if st.deformed and not st.cut and st.gate_tiles:
         hit_tile = hit_tile & _tiles_with_candidates(
             st, p_def, o, d_all, near_all, far_all, hit_tile, intrinsics)
-    act_ids, act_mask, act_n, overflow = _compact_tiles(hit_tile, a_cap,
-                                                        all_tids)
+    act_ids, act_mask, act_n, overflow = _compact_tiles(
+        hit_tile, _cap(st.active_frac, n_tiles, chunk), all_tids)
     return n_tiles, o, bbmin, bbmax, act_ids, act_mask, act_n, overflow
+
+
+def cut_classes(st, pose, intrinsics, H, W, cut_bounds):
+    """The cut-split partition of the tiles that hit the scene box: the
+    bend class, whose rays enter the cut box (``active_frac`` slots), and
+    the static class, whose rays never do and so cannot hold a bending
+    sample (``cut_static_frac`` slots). It depends on the camera and the
+    cut box only. Returns (o, bbmin, bbmax, bend, static), each class as
+    (ids, mask, n, overflow)."""
+    bbmin, bbmax = _scene_box(st, pose.device)
+    all_tids, o, d_all, _, _, hit_tile = _tile_hits(
+        st, bbmin, bbmax, pose, intrinsics, H, W)
+    n_tiles = all_tids.shape[0]
+    cb = cut_bounds
+    cnear, _ = _near_far(o, d_all, cb[0::2], cb[1::2], st.min_near)
+    cut_hit = (cnear < 1e30).any(dim=1)
+    bend = _compact_tiles(hit_tile & cut_hit,
+                          _cap(st.active_frac, n_tiles, st.tile_chunk),
+                          all_tids)
+    static = _compact_tiles(hit_tile & ~cut_hit,
+                            _cap(st.cut_static_frac, n_tiles, st.tile_chunk),
+                            all_tids)
+    return o, bbmin, bbmax, bend, static
+
+
+def render_static_cache(
+    settings: InteractiveSettings,
+    packed_w: torch.Tensor,
+    pose: torch.Tensor,
+    intrinsics: Tuple[float, float, float, float],
+    H: int,
+    W: int,
+    cut_bounds,
+    t_jitter: float = 0.5,
+) -> Dict[str, torch.Tensor]:
+    """The cut-split static class rendered once per camera. Its tiles'
+    rays never enter the cut box, so their pixels depend on the weights,
+    pose, intrinsics and cut box only, never on the sim state; under a
+    fixed camera ``render_frame_fused(static_cache=...)`` reuses them and
+    its frame equals the uncached one exactly (same kernel, slots and
+    jitter). Nothing checks that the cache matches the frame's inputs:
+    rebuild it on any camera, weights or cut box change."""
+    st = settings
+    _check_supported(st)
+    cb = torch.as_tensor(cut_bounds, dtype=torch.float32,
+                         device=pose.device).reshape(6)
+    o, bbmin, bbmax, _, (ids_s, mask_s, n_s, ovf_s) = cut_classes(
+        st, pose, intrinsics, H, W, cb)
+    imgs_s, dep_s, ws_s, _, _ = _fused_tile_pass(
+        st, packed_w, None, None, o, pose, intrinsics, H, W, ids_s, mask_s,
+        bbmin, bbmax, deformed=False, t_jitter=t_jitter)
+    return {"ids": ids_s, "mask": mask_s, "n": n_s, "overflow": ovf_s,
+            "imgs": imgs_s, "depths": dep_s, "ws": ws_s}
 
 
 def render_frame_fused(
@@ -256,11 +362,17 @@ def render_frame_fused(
     H: int,
     W: int,
     bg_color,
+    cut_bounds=None,              # [6] in cut mode
+    t_jitter: float = 0.5,
+    static_cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Fused-kernel frame (deformed, non-cut): torch ops do tile activity
-    and candidate prep; the tile kernel does bend -> field -> composite.
-    Capacity overflow is counted in ``dropped_beam`` / ``dropped_window``
-    / ``n_tile_overflow``."""
+    """Fused-kernel frame: torch ops do tile activity and candidate prep;
+    the tile kernel does bend -> field -> composite. Deformed, static
+    (``deformed=False``) and cut frames; with ``cut_split`` a cut frame
+    renders its bend class and its static class (or takes the latter from
+    ``render_static_cache``) in two passes and scatters them in that
+    order. Capacity overflow is counted in ``dropped_beam`` /
+    ``dropped_window`` / ``n_tile_overflow``."""
     st = settings
     _check_supported(st)
     if st.bend.max_iter_num != 1:
@@ -269,14 +381,47 @@ def render_frame_fused(
             "the XLA tile path (ROADMAP.md queue 1 item 9)")
     if ip_pack.shape[1] != tile_kernel.PACK_FAST:
         raise ValueError("the fused path needs pack_ip_data_fast rows")
+    cb = _cut_box(st, cut_bounds, pose.device)
+    T2 = st.tile ** 2
+
+    if st.cut and st.deformed and st.cut_split:
+        o, bbmin, bbmax, bend, static = cut_classes(st, pose, intrinsics, H,
+                                                    W, cb)
+        n_tiles = (H // st.tile) * (W // st.tile)
+        ids_b, mask_b, n_b, ovf_b = bend
+        imgs_b, dep_b, ws_b, dr_beam, dr_win = _fused_tile_pass(
+            st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
+            ids_b, mask_b, bbmin, bbmax, deformed=True, cut=True,
+            cut_bounds=cb, t_jitter=t_jitter)
+        if static_cache is None:
+            ids_s, mask_s, n_s, ovf_s = static
+            imgs_s, dep_s, ws_s, _, _ = _fused_tile_pass(
+                st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
+                ids_s, mask_s, bbmin, bbmax, deformed=False,
+                t_jitter=t_jitter)
+        else:
+            c = static_cache
+            ids_s, mask_s, n_s, ovf_s = c["ids"], c["mask"], c["n"], \
+                c["overflow"]
+            imgs_s, dep_s, ws_s = c["imgs"], c["depths"], c["ws"]
+        frame, fdepth, fws = _scatter_frame(
+            n_tiles, T2, bg_color,
+            [(ids_b, mask_b, imgs_b, dep_b, ws_b),
+             (ids_s, mask_s, imgs_s, dep_s, ws_s)])
+        return {"tiles_image": frame, "tiles_depth": fdepth, "tiles_ws": fws,
+                "n_active": n_b + n_s, "n_tile_overflow": ovf_b + ovf_s,
+                "dropped_beam": dr_beam,
+                "dropped_window": dr_win.to(torch.int64)}
+
     (n_tiles, o, bbmin, bbmax, act_ids, act_mask, act_n,
      overflow) = active_tiles(st, p_def, pose, intrinsics, H, W,
                                st.tile_chunk)
     imgs, depths, wss, dr_beam, dr_win = _fused_tile_pass(
         st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
-        act_ids, act_mask, bbmin, bbmax)
-    frame, fdepth, fws = _scatter_frame(n_tiles, st.tile ** 2, bg_color,
-                                        act_ids, act_mask, imgs, depths, wss)
+        act_ids, act_mask, bbmin, bbmax, deformed=st.deformed, cut=st.cut,
+        cut_bounds=cb, t_jitter=t_jitter)
+    frame, fdepth, fws = _scatter_frame(
+        n_tiles, T2, bg_color, [(act_ids, act_mask, imgs, depths, wss)])
     return {"tiles_image": frame, "tiles_depth": fdepth, "tiles_ws": fws,
             "n_active": act_n, "n_tile_overflow": overflow,
             "dropped_beam": dr_beam,
@@ -296,15 +441,21 @@ def render_frame_exact(
     W: int,
     bg_color,
     tile_chunk: int = 2,
+    cut_bounds=None,              # [6] in cut mode
 ) -> Dict[str, torch.Tensor]:
     """Fidelity oracle: the fused frame's tile lattice, samples and
     composite, with each sample's k nearest IPs found by brute force over
     all IPs, the general Newton solve, the same per-axis ip_dx reject and
     1/dist blend, and the field evaluated by ``kernels.field.field_eval``
-    (the field kernel on the card). O(samples x nIP): offline only."""
+    (the field kernel on the card). In cut mode it marches the full scene
+    box without the candidate gate and keeps the bent position only inside
+    the cut box. Deformed frames only. O(samples x nIP): offline only."""
     st = settings
     _check_supported(st)
+    if not st.deformed:
+        raise ValueError("the exact oracle renders deformed frames")
     dev = p_def.device
+    cb = _cut_box(st, cut_bounds, dev)
     ts = st.tile
     T2 = ts * ts
     K = st.samples
@@ -363,6 +514,13 @@ def render_frame_exact(
         wn = w / torch.clamp(wsum, min=1e-30)[:, None]
         x_rest = torch.einsum("mk,mkd->md", wn, p_rest)
         x_rest = torch.where(found[:, None], x_rest, x)
+        if st.cut:
+            in_cut = torch.ones_like(found)
+            for i in range(3):
+                in_cut = (in_cut & (x[:, i] > cb[2 * i])
+                          & (x[:, i] < cb[2 * i + 1]))
+            x_rest = torch.where(in_cut[:, None], x_rest, x)
+            found = found | ~in_cut
 
         valid = (found.reshape(C, T2, K) & (t[:, None, :] >= near[..., None])
                  & (t[:, None, :] <= far[..., None]) & thit[..., None])
@@ -388,8 +546,8 @@ def render_frame_exact(
                                  for i in range(3)], dim=-1))
 
     frame, fdepth, fws = _scatter_frame(
-        n_tiles, T2, bg_color, act_ids, act_mask, torch.cat(imgs, 0),
-        torch.cat(depths, 0), torch.cat(wss, 0))
+        n_tiles, T2, bg_color, [(act_ids, act_mask, torch.cat(imgs, 0),
+                                 torch.cat(depths, 0), torch.cat(wss, 0))])
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     return {"tiles_image": frame, "tiles_depth": fdepth, "tiles_ws": fws,
             "n_active": act_n, "n_tile_overflow": overflow,

@@ -7,7 +7,7 @@ per frame is ROADMAP.md queue 1 item 7).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -29,11 +29,15 @@ def interactive_frame_step(
     bg_color,
     force_vid: int,               # < 0 disables the force
     force: torch.Tensor,          # [3]
+    cut_bounds=None,              # [6] when settings.cut
     substeps: int = 1,
+    static_cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[sim.SimState, Dict[str, torch.Tensor]]:
     """One coupled frame: force application, ``substeps`` sim steps, the
     per-IP pack, then bend + field + composite through the tile kernel.
-    ``substeps`` > 1 needs consts built at dt = frame_dt / substeps.
+    ``substeps`` > 1 needs consts built at dt = frame_dt / substeps. In cut
+    mode ``static_cache`` (``interactive.render_static_cache``) stands in
+    for the static tile class under a fixed camera.
     The stages are named ranges (``frame.sim``, ``frame.ip_pack``,
     ``frame.render``) for ``torch.profiler``."""
     with record_function("frame.sim"):
@@ -50,5 +54,5 @@ def interactive_frame_step(
     with record_function("frame.render"):
         out = interactive.render_frame_fused(
             settings, packed_w, pack, p_def, pose, intrinsics, H, W,
-            bg_color)
+            bg_color, cut_bounds, static_cache=static_cache)
     return state, out

@@ -53,6 +53,27 @@ def test_main_gui_cpu_writes_frames(tmp_path):
         assert img.min() < 255          # the object covers some pixels
 
 
+def test_main_gui_cpu_cut_writes_frames(tmp_path):
+    """--cut bends inside the box only; the rest of the --bound box renders
+    as the static background through the cut-split passes."""
+    out = tmp_path / "frames"
+    cmd = [sys.executable, "-m", "pienerf_tpu_torch.main_gui", "--device",
+           "cpu", "--workspace", str(tmp_path / "ws"), "--H", "64", "--W",
+           "64", "--frames", "2", "--out_dir", str(out), "--cut",
+           "--cut_bounds", "0.0", "0.5", "-0.5", "0.5", "-0.5",
+           "0.5"] + GUI_FLAGS
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "wrote 2 frames" in r.stdout
+    pngs = sorted(os.listdir(out))
+    assert pngs == ["frame_0000.png", "frame_0001.png"]
+    for p in pngs:
+        img = _read_png(out / p)
+        assert img.shape == (64, 64, 3)
+        assert img.min() < 255
+
+
 def test_main_gui_without_cuda_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this checks the no-CUDA refusal; a card is present")
@@ -70,7 +91,7 @@ def test_unported_paths_raise(tmp_path):
     from pienerf_tpu_torch import main_gui
     base = ["--device", "cpu", "--workspace", str(tmp_path / "ws"),
             "--frames", "1", "--out_dir", str(tmp_path / "o")] + GUI_FLAGS
-    for extra in (["--max_iter_num", "100"], ["--cut"]):
+    for extra in (["--max_iter_num", "100"], ["--sim_bf16_b"]):
         with pytest.raises(NotImplementedError):
             main_gui.main(base + extra)
 
