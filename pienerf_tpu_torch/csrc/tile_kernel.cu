@@ -2,9 +2,10 @@
 // composite for one 16x16 image tile per thread block.
 //
 // Replaces the Pallas TPU kernel pienerf_tpu/ops/pallas/tile_kernel.py
-// `_make_kernel` (launched by `render_tiles`, :640-742) with paired=False,
-// one tile per grid step and 64-wide weights, in its three frame modes,
-// each a compile-time instantiation:
+// `_make_kernel` (launched by `render_tiles`, :640-742) with paired=False
+// and one tile per grid step, for both packed widths (Wd 64, the classic
+// net; Wd 128, the distilled student: field_mlp.cuh's Net64 / Net128), in
+// its three frame modes, each a compile-time instantiation:
 //   deformed (DEFORMED, !CUT): bend every sample; skip a segment with no
 //     candidate in its halo window;
 //   static (!DEFORMED): the march without bending (xm = x, found = true);
@@ -23,14 +24,20 @@
 // static mode).
 //
 // What bounds it on this card: operations. Each executed sample costs the
-// 18,752-MAC field MLP plus, in the bending modes, num_seek
+// 18,752-MAC (Wd 64) or 63,616-MAC (Wd 128) field MLP plus, in the bending
+// modes, num_seek
 // nearest-candidate passes over a Wn-row window; a tile reads ~30 KB and
 // writes 8 KB. The work depends on the data (early exit, empty-segment
 // skip), so the bound counts executed segments x 256 rays x Ks samples.
 //
 // Design: one thread per ray, 256 threads per block; every per-sample
-// intermediate stays on chip (registers, and the thread's shared-memory
-// activation columns for the MLP). The TPU kernel's one-hot MXU fetch
+// intermediate stays on chip (registers, and shared-memory activation
+// columns for the MLP). At Wd 64 each thread runs its ray's sample through
+// the MLP alone (field_point, weights staged once per tile); at Wd 128 the
+// block runs its 256 samples through the MLP in two passes of 128, two
+// threads per sample and one layer's weights staged at a time
+// (field_points_wide), which every thread reaches: the sample loops are
+// block-uniform. The TPU kernel's one-hot MXU fetch
 // becomes a plain indexed read from the sub-segment's candidate window,
 // which the block copies to shared memory (Wn x 16 f32) beside the staged
 // weights. The argmin uses a strict `<` in row order, so ties go to the
@@ -62,7 +69,7 @@ __device__ __forceinline__ float jmin(float a, float b) {
   return (a < b || isnan(a)) ? a : b;
 }
 
-template <bool BF16, bool DEFORMED, bool CUT>
+template <bool BF16, bool DEFORMED, bool CUT, class N>
 __global__ void __launch_bounds__(kT2)
 render_tiles_kernel(const float* __restrict__ tile_sc,
                     const int* __restrict__ bin_start,
@@ -72,10 +79,11 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
                     const float* __restrict__ pw, float* __restrict__ out,
                     int BS, int P, int K, int Ks, int Ksb, int Wn,
                     int num_seek, float bound) {
+  constexpr bool kWide = N::kWd == 128;
   extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  float* buf = sw + kWFloats;                       // activation columns
-  float* win = buf + 2 * kWd * kT2;         // [Wn, 16], bending modes only
+  float* sw = reinterpret_cast<float*>(smem4);      // weights
+  float* buf = sw + (kWide ? N::kWd * N::kWd : N::wfloats());  // activations
+  float* win = sw + mlp_smem_floats<N>(kT2);  // [Wn, 16], bending modes only
   const int a = blockIdx.x;
   const int r = threadIdx.x;
   float* o_t = out + (size_t)a * 8 * kT2;
@@ -87,8 +95,10 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
     for (int row = 0; row < 8; ++row) o_t[row * kT2 + r] = 0.f;
     return;
   }
-  stage_weights<BF16>(sw, pw);   // bending modes sync at the first window
-  if constexpr (!DEFORMED) __syncthreads();
+  if constexpr (!kWide) {
+    stage_weights<BF16, N>(sw, pw);  // bending modes sync at the first window
+    if constexpr (!DEFORMED) __syncthreads();
+  }
 
   const float o[3] = {params[0], params[1], params[2]};
   const float T_thresh = params[9];
@@ -249,8 +259,17 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
         }
 
         float sigma, cr, cg, cb;
-        field_point<BF16>(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
-                          cb);
+        if constexpr (kWide) {
+          // rays [128 h, 128 h + 128) own the samples of pass h
+          for (int h = 0; h < 2; ++h) {
+            field_points_wide<BF16, N>(sw, buf, buf + N::kWd * kWidePoints,
+                                       pw, r / kWidePoints == h, xm0, xm1,
+                                       xm2, bound, sh, sigma, cr, cg, cb);
+          }
+        } else {
+          field_point<BF16>(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
+                            cb);
+        }
 
         // transmittance composite with the carried optical depth
         const bool vmask = found && (t >= near) && (t <= far) && thit;
@@ -288,15 +307,15 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   o_t[7 * kT2 + r] = 0.f;
 }
 
-template <bool BF16, bool DEFORMED, bool CUT>
+template <bool BF16, bool DEFORMED, bool CUT, class N>
 cudaError_t launch(const float* tile_sc, const int* bin_start,
                    const float* params, const float* dirs, const float* cand,
                    const float* pw, float* out, int A, int BS, int P, int K,
                    int Ks, int Ksb, int Wn, int num_seek, float bound,
                    cudaStream_t stream) {
-  auto kern = render_tiles_kernel<BF16, DEFORMED, CUT>;
+  auto kern = render_tiles_kernel<BF16, DEFORMED, CUT, N>;
   // the candidate window exists only in the bending modes
-  const size_t smem = mlp_smem_bytes(kT2) +
+  const size_t smem = mlp_smem_bytes<N>(kT2) +
                       (DEFORMED ? (size_t)Wn * 16 * sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -314,26 +333,32 @@ using LaunchFn = cudaError_t (*)(const float*, const int*, const float*,
                                  float*, int, int, int, int, int, int, int,
                                  int, float, cudaStream_t);
 
-// [bf16][mode]: deformed, static, cut
-constexpr LaunchFn kLaunch[2][3] = {
-    {launch<false, true, false>, launch<false, false, false>,
-     launch<false, true, true>},
-    {launch<true, true, false>, launch<true, false, false>,
-     launch<true, true, true>}};
+// [wide][bf16][mode]: deformed, static, cut
+constexpr LaunchFn kLaunch[2][2][3] = {
+    {{launch<false, true, false, Net64>, launch<false, false, false, Net64>,
+      launch<false, true, true, Net64>},
+     {launch<true, true, false, Net64>, launch<true, false, false, Net64>,
+      launch<true, true, true, Net64>}},
+    {{launch<false, true, false, Net128>, launch<false, false, false, Net128>,
+      launch<false, true, true, Net128>},
+     {launch<true, true, false, Net128>, launch<true, false, false, Net128>,
+      launch<true, true, true, Net128>}}};
 
 }  // namespace pienerf
 
 // `cut` applies only with `deformed`, as in the Pallas kernel: deformed=0
-// selects the static march whatever `cut` is.
+// selects the static march whatever `cut` is. `wd` is the pack's width: 64
+// or 128 (the two shipped nets).
 extern "C" int pienerf_render_tiles(const void* tile_sc, const void* bin_start,
                                     const void* params, const void* dirs,
                                     const void* cand, const void* pw,
                                     void* out, int A, int BS, int P, int K,
                                     int Ks, int Ksb, int Wn, int num_seek,
                                     float bound, int bf16, int deformed,
-                                    int cut, void* stream) {
+                                    int cut, int wd, void* stream) {
+  if (wd != 64 && wd != 128) return (int)cudaErrorInvalidValue;
   const int mode = !deformed ? 1 : (cut ? 2 : 0);
-  cudaError_t err = pienerf::kLaunch[bf16 ? 1 : 0][mode](
+  cudaError_t err = pienerf::kLaunch[wd == 128][bf16 ? 1 : 0][mode](
       static_cast<const float*>(tile_sc), static_cast<const int*>(bin_start),
       static_cast<const float*>(params), static_cast<const float*>(dirs),
       static_cast<const float*>(cand), static_cast<const float*>(pw),

@@ -1,9 +1,11 @@
 """Fused field evaluation: the CUDA kernel ``csrc/field_kernel.cu`` and its
 plain PyTorch version.
 
-Port of ``pienerf_tpu.ops.pallas.field_kernel``. ``field_eval`` launches
-the kernel for CUDA tensors and takes ``field_eval_plain`` only for CPU
-tensors; it never falls back from the card to the plain version.
+Port of ``pienerf_tpu.ops.pallas.field_kernel`` at both kernel widths (the
+classic 64-wide net and the distilled 128-wide student; ``KERNEL_NETS``).
+``field_eval`` launches the kernel for CUDA tensors and takes
+``field_eval_plain`` only for CPU tensors; it never falls back from the card
+to the plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +20,15 @@ from pienerf_tpu_torch.models.network import (NetworkSpec, layer_dims,
                                               torch_dtype)
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
 from pienerf_tpu_torch.models.freq_encoder import freq_encode
+
+# The nets the CUDA kernels are built for, by pack width: (sigma layer
+# dims, color layer dims). 128 is the distilled student of
+# ``pienerf_tpu.train.distill.make_student_spec(width=128)`` (n_freqs 10).
+KERNEL_NETS = {
+    64: ([51, 64, 64, 64, 16], [31, 64, 64, 3]),
+    128: ([63, 128, 128, 128, 16], [31, 128, 128, 3]),
+}
+WIDTHS = tuple(KERNEL_NETS)
 
 
 def kernel_width(spec: NetworkSpec) -> int:
@@ -93,15 +104,18 @@ def field_eval_plain(packed_w: torch.Tensor, spec: NetworkSpec, x, d
     return mlp_plain(packed_w, spec, enc, sh)
 
 
-def check_kernel_spec(spec: NetworkSpec, packed_w: torch.Tensor) -> None:
-    """The CUDA kernels are specialised to the shipped architecture."""
+def check_kernel_spec(spec: NetworkSpec, packed_w: torch.Tensor) -> int:
+    """The CUDA kernels are specialised to the nets of ``KERNEL_NETS``,
+    each packed [7, Wd, Wd]. Returns Wd."""
     sd, cd = layer_dims(spec)
-    if (sd != [51, 64, 64, 64, 16] or cd != [31, 64, 64, 3]
-            or tuple(packed_w.shape) != (7, 64, 64)):
-        raise NotImplementedError(
-            f"the CUDA field kernels take the 51-64-64-64-16 / 31-64-64-3 "
-            f"net packed [7, 64, 64]; got sigma {sd}, color {cd}, pack "
-            f"{tuple(packed_w.shape)} (wider students: ROADMAP.md §2 row 5)")
+    for wd, dims in KERNEL_NETS.items():
+        if (sd, cd) == dims and tuple(packed_w.shape) == (7, wd, wd):
+            return wd
+    raise NotImplementedError(
+        f"the CUDA field kernels take the 51-64-64-64-16 / 31-64-64-3 net "
+        f"packed [7, 64, 64] or the 63-128-128-128-16 / 31-128-128-3 net "
+        f"packed [7, 128, 128]; got sigma {sd}, color {cd}, pack "
+        f"{tuple(packed_w.shape)}")
 
 
 def check_arg(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -123,7 +137,8 @@ def field_eval(packed_w: torch.Tensor, spec: NetworkSpec, x, d
     """Evaluate the field at N points (any N). x, d: 3-tuples of [N]
     tensors or [3, N]. Returns (sigma [N], rgb [3, N]) f32.
 
-    CPU tensors take field_eval_plain; CUDA tensors launch the kernel."""
+    CPU tensors take field_eval_plain; CUDA tensors launch the kernel at
+    the pack's width and count the launch in ``field_eval.launches[Wd]``."""
     x = _stack(x)
     if x.device.type == "cpu":
         return field_eval_plain(packed_w, spec, x, d)
@@ -131,9 +146,9 @@ def field_eval(packed_w: torch.Tensor, spec: NetworkSpec, x, d
     x = x.contiguous()
     n = x.shape[1]
     dev = x.device
-    check_kernel_spec(spec, packed_w)
+    wd = check_kernel_spec(spec, packed_w)
     for t, name, shape in ((x, "x", (3, n)), (d, "d", (3, n)),
-                           (packed_w, "packed_w", (7, 64, 64))):
+                           (packed_w, "packed_w", (7, wd, wd))):
         check_arg(t, name, torch.float32, shape, dev)
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
     if n > 0:
@@ -142,16 +157,16 @@ def field_eval(packed_w: torch.Tensor, spec: NetworkSpec, x, d
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), d.data_ptr(), packed_w.data_ptr(),
                 out.data_ptr(), n, float(spec.bound),
-                int(spec.compute_dtype == "bfloat16"), n_sm, stream)
+                int(spec.compute_dtype == "bfloat16"), wd, n_sm, stream)
         _build.check(lib, rc, "field_eval")
-        field_eval.launches += 1
+        field_eval.launches[wd] += 1
     return out[0], out[1:4]
 
 
-field_eval.launches = 0
+field_eval.launches = dict.fromkeys(WIDTHS, 0)

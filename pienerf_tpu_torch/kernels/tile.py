@@ -1,13 +1,14 @@
 """Fused per-tile frame kernel: candidate prep, the CUDA kernel
 ``csrc/tile_kernel.cu`` and its plain PyTorch version.
 
-Port of ``pienerf_tpu.ops.pallas.tile_kernel`` with one tile per block and
-64-wide weights, in its three frame modes: deformed (bend every sample),
-static (``deformed=False``: no candidates, no bending) and cut
-(``deformed=True, cut=True``: bend only inside the cut box). The wide and
-paired modes are not ported yet (ROADMAP.md §2). ``render_tiles``
-launches the kernel for CUDA tensors and takes ``render_tiles_plain`` only
-for CPU tensors.
+Port of ``pienerf_tpu.ops.pallas.tile_kernel`` with one tile per block, at
+both packed widths (``kernels.field.KERNEL_NETS``: Wd 64 and the 128-wide
+student), in its three frame modes: deformed (bend every sample), static
+(``deformed=False``: no candidates, no bending) and cut (``deformed=True,
+cut=True``: bend only inside the cut box). The paired and ``block_tiles``
+variants are not ported yet (ROADMAP.md §2). ``render_tiles`` launches the
+kernel for CUDA tensors and takes ``render_tiles_plain`` only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -18,14 +19,15 @@ from typing import Optional, Tuple
 import torch
 
 from pienerf_tpu_torch.kernels import _build
-from pienerf_tpu_torch.kernels.field import (check_arg, check_kernel_spec,
-                                             encode_rows, mlp_plain)
+from pienerf_tpu_torch.kernels.field import (WIDTHS, check_arg,
+                                             check_kernel_spec, encode_rows,
+                                             mlp_plain)
 from pienerf_tpu_torch.models.network import NetworkSpec, torch_dtype
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
 
 T2 = 256          # rays per 16x16 tile
 PACK_FAST = 16    # candidate rows: p_def(3) p_ori(3) F^-1(9) valid(1)
-MODES = ("deformed", "static", "cut")   # launch counters, one per mode
+MODES = ("deformed", "static", "cut")
 
 
 def mode_of(deformed: bool, cut: bool) -> str:
@@ -197,7 +199,7 @@ def _bend_segment(x, cand, bs, halo, k_seg, ip_dx, *, K, Ksb, Wn,
 
 def render_tiles_plain(
     spec: NetworkSpec,
-    packed_w: torch.Tensor,    # [L, 64, 64]
+    packed_w: torch.Tensor,    # [L, Wd, Wd]
     tile_sc: torch.Tensor,     # [A, 8]  t0, t1, active
     bin_start: torch.Tensor,   # [A, >= K+4] int32
     params: torch.Tensor,      # [24]
@@ -328,8 +330,8 @@ def render_tiles(
     """Run the fused tile kernel over A tiles -> out [A, 8, 256].
 
     CPU tensors take render_tiles_plain; CUDA tensors launch the kernel in
-    the mode ``mode_of(deformed, cut)`` and count the launch in
-    ``render_tiles.launches[mode]``."""
+    the mode ``mode_of(deformed, cut)`` at the pack's width Wd and count
+    the launch in ``render_tiles.launches[(mode, Wd)]``."""
     A, P = cand.shape[0], cand.shape[1]
     BS = bin_start.shape[1]
     if P < Wn:
@@ -347,31 +349,31 @@ def render_tiles(
                                   dirs, cand, **kw)
     dev = tile_sc.device
     mode = mode_of(deformed, cut)
-    check_kernel_spec(spec, packed_w)
+    wd = check_kernel_spec(spec, packed_w)
     for t, name, dtype, shape in (
             (tile_sc, "tile_sc", torch.float32, (A, 8)),
             (bin_start, "bin_start", torch.int32, (A, BS)),
             (params, "params", torch.float32, (24,)),
             (dirs, "dirs", torch.float32, (A, 8, T2)),
             (cand, "cand", torch.float32, (A, P, PACK_FAST)),
-            (packed_w, "packed_w", torch.float32, (7, 64, 64))):
+            (packed_w, "packed_w", torch.float32, (7, wd, wd))):
         check_arg(t, name, dtype, shape, dev)
     out = torch.empty((A, 8, T2), dtype=torch.float32, device=dev)
     lib = _build.library("tile")
     fn = lib.pienerf_render_tiles
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
     rc = fn(tile_sc.data_ptr(), bin_start.data_ptr(), params.data_ptr(),
             dirs.data_ptr(), cand.data_ptr(), packed_w.data_ptr(),
             out.data_ptr(), A, BS, P, K, Ks, Ksb, Wn, num_seek,
             float(spec.bound), int(spec.compute_dtype == "bfloat16"),
-            int(deformed), int(cut), stream)
+            int(deformed), int(cut), wd, stream)
     _build.check(lib, rc, "render_tiles")
-    render_tiles.launches[mode] += 1
+    render_tiles.launches[(mode, wd)] += 1
     return out
 
 
-render_tiles.launches = dict.fromkeys(MODES, 0)
+render_tiles.launches = {(m, wd): 0 for m in MODES for wd in WIDTHS}

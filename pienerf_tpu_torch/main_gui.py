@@ -7,9 +7,14 @@ and runs the coupled sim + render loop, writing PNG frames:
 
     python -m pienerf_tpu_torch.main_gui --workspace runs/quality_mlp_800 \\
         --exp_name cube --backbone mlp --sim_dx 0.2 --bound 0.5 \\
-        --W 400 --H 400 --radius 2.5 --kres 4 --max_iter_num 1 \\
-        --num_seek_IP 3 --frames 5 --out_dir gui_frames
+        --W 400 --H 400 --radius 2.5 --kres 4 --frames 5 --out_dir gui_frames
 
+At the default ``--max_iter_num`` (100, the reference's full Newton
+"quadratic ray bending") each frame runs the sim step and then
+``interactive.render_frame``, whose field goes through the field kernel;
+``--max_iter_num 1`` takes the fused tile kernel instead
+(``pipeline.interactive_frame_step``). The 64-wide net and the 128-wide
+distilled student both run, at the width of the checkpoint's weights.
 ``--cut --cut_bounds xmin xmax ymin ymax zmin zmax`` bends only inside the
 box and renders the rest of the scene (``--bound``) as a static background.
 Runs on the card; ``--device cpu`` is the only way onto the CPU.
@@ -94,10 +99,6 @@ def main(argv=None):
     from pienerf_tpu_torch.utils.camera import OrbitCamera
 
     device = resolve_device(ns.device)
-    if cfg.max_iter_num != 1:
-        raise NotImplementedError(
-            "--max_iter_num != 1 runs the XLA render_frame path, not ported "
-            "yet (ROADMAP.md queue 1 item 9); pass --max_iter_num 1")
     if cfg.sim_bf16_b:
         raise NotImplementedError("--sim_bf16_b is not ported yet "
                                   "(ROADMAP.md queue 1 item 3)")
@@ -132,20 +133,38 @@ def main(argv=None):
     cam = OrbitCamera(W, H, r=cfg.radius, fovy=cfg.fovy)
     pose = torch.as_tensor(cam.pose, device=device)
     fvec = torch.tensor(ns.force, dtype=torch.float32, device=device)
+    fused = cfg.max_iter_num == 1   # fast-Newton pack -> fused tile kernel
 
     os.makedirs(ns.out_dir, exist_ok=True)
     with FrameSink() as sink:
         t_prev = time.perf_counter()
         for i in range(ns.frames):
-            state, out = pipeline.interactive_frame_step(
-                ist, consts, state, pw, pose, cam.intrinsics, H, W, 1.0,
-                ns.force_ip, fvec, cut_bounds, substeps=cfg.sim_substeps)
-            if (i % 10 == 0 or cfg.timing_on) and not bool(
-                    torch.isfinite(out["tiles_ws"]).all()):
-                raise SystemExit(
-                    f"simulation diverged at frame {i}; tune --sim_dt / "
-                    "--kres / mass / lam,mu (the local-global scheme is "
-                    "conditionally stable, matching the CUDA reference)")
+            if fused:
+                state, out = pipeline.interactive_frame_step(
+                    ist, consts, state, pw, pose, cam.intrinsics, H, W, 1.0,
+                    ns.force_ip, fvec, cut_bounds, substeps=cfg.sim_substeps)
+                if (i % 10 == 0 or cfg.timing_on) and not bool(
+                        torch.isfinite(out["tiles_ws"]).all()):
+                    raise SystemExit(
+                        f"simulation diverged at frame {i}; tune --sim_dt / "
+                        "--kres / mass / lam,mu (the local-global scheme is "
+                        "conditionally stable, matching the CUDA reference)")
+            else:
+                state = (sim.update_force(consts, state, ns.force_ip, fvec)
+                         if ns.force_ip >= 0 else sim.clear_force(state))
+                state = sim.sim_step(consts, state)
+                p_def, F, dF = sim.get_ip_info(consts, state)
+                if not bool(torch.isfinite(p_def).all()):
+                    raise SystemExit(
+                        f"simulation diverged at frame {i} (NaN IP "
+                        "positions); tune --sim_dt / --kres / mass / lam,mu "
+                        "(the local-global scheme is conditionally stable, "
+                        "matching the CUDA reference)")
+                pack = beam_bend.pack_for(bst, p_def, consts.ip_pos.float(),
+                                          F, dF)
+                out = interactive.render_frame(
+                    ist, pw, pack, p_def, pose, cam.intrinsics, H, W, 1.0,
+                    cut_bounds)
             img = interactive.tiles_to_image(out["tiles_image"], H, W,
                                              ist.tile)
             sink.push(os.path.join(ns.out_dir, f"frame_{i:04d}.png"), img)

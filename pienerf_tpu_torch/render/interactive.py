@@ -2,10 +2,13 @@
 and the fused tile kernel; plus the exact-bending oracle.
 
 Port of ``pienerf_tpu.render.interactive`` for deformed, static
-(``deformed=False``) and cut frames, with the cut-split into bend and
-static tile classes and the camera-fixed static cache. The XLA tile path
-``render_frame`` is not ported yet (ROADMAP.md queue 1 item 9). Every
-tensor stays on the device of the pose.
+(``deformed=False``) and cut frames: the fused frame (``render_frame_fused``,
+the tile kernel; ``max_iter_num == 1``) with the cut-split into bend and
+static tile classes and the camera-fixed static cache, the binned Newton
+frame (``render_frame``, any ``max_iter_num``; the field kernel), and the
+exact-bending oracle. Either kernel width (64 or the 128-wide student)
+follows from the packed weights. Every tensor stays on the device of the
+pose.
 """
 
 from __future__ import annotations
@@ -354,7 +357,7 @@ def render_static_cache(
 
 def render_frame_fused(
     settings: InteractiveSettings,
-    packed_w: torch.Tensor,       # [7, 64, 64] kernels.field.pack_weights
+    packed_w: torch.Tensor,       # [7, Wd, Wd] kernels.field.pack_weights
     ip_pack: torch.Tensor,        # [nIP, 16] beam_bend.pack_ip_data_fast
     p_def: torch.Tensor,          # [nIP, 3]
     pose: torch.Tensor,           # [4, 4]
@@ -378,7 +381,7 @@ def render_frame_fused(
     if st.bend.max_iter_num != 1:
         raise NotImplementedError(
             "the fused frame needs max_iter_num == 1; deeper Newton runs "
-            "the XLA tile path (ROADMAP.md queue 1 item 9)")
+            "render_frame")
     if ip_pack.shape[1] != tile_kernel.PACK_FAST:
         raise ValueError("the fused path needs pack_ip_data_fast rows")
     cb = _cut_box(st, cut_bounds, pose.device)
@@ -426,6 +429,127 @@ def render_frame_fused(
             "n_active": act_n, "n_tile_overflow": overflow,
             "dropped_beam": dr_beam,
             "dropped_window": dr_win.to(torch.int64)}
+
+
+def _composite(st, sigma, rgb, t, dt):
+    """Composite along K: sigma [C, T2, K] (0 where invalid), rgb [3, C,
+    T2, K], sample depths t and widths dt [C, K | 1]. A sample counts while
+    the transmittance before it is >= T_thresh. Returns (img [C, T2, 3],
+    depth [C, T2], ws [C, T2])."""
+    tau = sigma * dt[:, None, :]
+    cum = torch.cumsum(tau, dim=-1)
+    T_excl = torch.exp(-(cum - tau))
+    alpha = 1.0 - torch.exp(-tau)
+    T_prev = torch.cat([torch.ones_like(cum[..., :1]),
+                        torch.exp(-cum[..., :-1])], dim=-1)
+    w = torch.where(T_prev >= st.T_thresh, alpha * T_excl, 0.0)
+    img = torch.stack([(w * rgb[i]).sum(dim=-1) for i in range(3)], dim=-1)
+    return img, (w * t[:, None, :]).sum(dim=-1), w.sum(dim=-1)
+
+
+def render_frame(
+    settings: InteractiveSettings,
+    packed_w: torch.Tensor,       # [7, Wd, Wd] kernels.field.pack_weights
+    ip_pack: torch.Tensor,        # [nIP, 48 | 16] beam_bend.pack_for
+    p_def: torch.Tensor,          # [nIP, 3]
+    pose: torch.Tensor,           # [4, 4]
+    intrinsics: Tuple[float, float, float, float],
+    H: int,
+    W: int,
+    bg_color,
+    cut_bounds=None,              # [6] in cut mode
+) -> Dict[str, torch.Tensor]:
+    """Binned-candidate frame, main_gui's path for any ``max_iter_num``
+    (the JAX package's XLA tile path): tile activity and compaction as the
+    fused frame, then per chunk of ``tile_chunk`` slots the beam candidates
+    in IP order (``select_tile_candidates``), depth bins
+    (``bin_candidates``), bin-centred samples, ``bend_tile_samples`` (the
+    48-wide rows run ``max_iter_num`` Newton steps, the 16-wide rows the
+    exact single step), the field through ``kernels.field.field_eval``
+    (the field kernel on the card) and the composite. Deformed, static
+    (``deformed=False``) and cut frames, one pass without the cut split.
+    Chunks holding no active slot are skipped (one host sync): their slots
+    are masked out of the frame and the counters. ``dropped_window``
+    counts bin-capacity drops."""
+    st = settings
+    dev = pose.device
+    cb = _cut_box(st, cut_bounds, dev)
+    ts = st.tile
+    if H % ts or W % ts:
+        raise ValueError(f"H, W must be multiples of the tile {ts}")
+    T2 = ts * ts
+    K = st.samples
+    C = st.tile_chunk
+    (n_tiles, _, bbmin, bbmax, act_ids, act_mask, act_n,
+     overflow) = active_tiles(st, p_def, pose, intrinsics, H, W, C)
+    a_cap = act_ids.shape[0]
+    tan_half = torch.full((C,), ts * 0.75 / intrinsics[0],
+                          dtype=torch.float32, device=dev)
+    kk = (torch.arange(K, dtype=torch.float32, device=dev) + 0.5) / K
+    dropped_beam = torch.zeros((), dtype=torch.int64, device=dev)
+    dropped_bin = torch.zeros((), dtype=torch.int64, device=dev)
+    n_live = -(-int(act_n) // C) * C
+
+    imgs, depths, wss = [], [], []
+    for c0 in range(0, n_live, C):
+        tids = act_ids[c0:c0 + C]
+        cmask = act_mask[c0:c0 + C]
+        o_, d = _tile_rays(tids, st, H, W, pose, intrinsics)
+        near, far = _near_far(o_, d, bbmin, bbmax, st.min_near)
+        thit = near < 1e30
+        t0, t1, _ = _tile_span(near, far, cmask)
+        if st.deformed:
+            cand, proj, m, dr_beam = beam_bend.select_tile_candidates(
+                st.bend, ip_pack, p_def, o_.expand(C, 3), _central_axis(d),
+                tan_half, t0, t1)
+            bins, dr_bin = beam_bend.bin_candidates(
+                st.bend, cand, proj, m, t0, (t1 - t0) / K,
+                K + 2 * st.bend.halo_bins)
+            dropped_beam = dropped_beam + torch.where(cmask, dr_beam, 0).sum()
+            dropped_bin = dropped_bin + torch.where(cmask, dr_bin, 0).sum()
+
+        # tile-uniform samples at the bin centres
+        t = t0[:, None] + (t1 - t0)[:, None] * kk[None, :]       # [C, K]
+        dt = ((t1 - t0) / K)[:, None]
+        xs = tuple(o_[i] + t[:, None, :] * d[i][:, :, None]
+                   for i in range(3))                             # [C,T2,K]
+        if st.deformed:
+            xm, found = beam_bend.bend_tile_samples(st.bend, bins, xs)
+            if st.cut:
+                # outside the cut box the static scene renders unbent
+                in_cut = torch.ones_like(found)
+                for i in range(3):
+                    in_cut = (in_cut & (xs[i] > cb[2 * i])
+                              & (xs[i] < cb[2 * i + 1]))
+                xm = tuple(torch.where(in_cut, xm[i], xs[i])
+                           for i in range(3))
+                found = found | ~in_cut
+        else:
+            xm, found = xs, torch.ones(xs[0].shape, dtype=torch.bool,
+                                       device=dev)
+
+        valid = (found & (t[:, None, :] >= near[..., None])
+                 & (t[:, None, :] <= far[..., None]) & thit[..., None])
+        ds = tuple(d[i][:, :, None].expand(C, T2, K).reshape(-1)
+                   for i in range(3))
+        sigma, rgb = field_kernel.field_eval(
+            packed_w, st.spec, tuple(c.reshape(-1) for c in xm), ds)
+        sigma = (sigma * st.density_scale).reshape(C, T2, K)
+        sigma = torch.where(valid, sigma, 0.0)
+        for acc, v in zip((imgs, depths, wss), _composite(
+                st, sigma, rgb.reshape(3, C, T2, K), t, dt)):
+            acc.append(v)
+    # the skipped chunks' slots are inactive: masked out by the scatter
+    imgs.append(torch.zeros((a_cap - n_live, T2, 3), device=dev))
+    depths.append(torch.zeros((a_cap - n_live, T2), device=dev))
+    wss.append(torch.zeros((a_cap - n_live, T2), device=dev))
+
+    frame, fdepth, fws = _scatter_frame(
+        n_tiles, T2, bg_color, [(act_ids, act_mask, torch.cat(imgs, 0),
+                                 torch.cat(depths, 0), torch.cat(wss, 0))])
+    return {"tiles_image": frame, "tiles_depth": fdepth, "tiles_ws": fws,
+            "n_active": act_n, "n_tile_overflow": overflow,
+            "dropped_beam": dropped_beam, "dropped_window": dropped_bin}
 
 
 def render_frame_exact(
@@ -533,17 +657,9 @@ def render_frame_exact(
         sigma = torch.where(valid, sigma, 0.0)
         rgb = rgb.reshape(3, C, T2, K)
 
-        tau = sigma * dt[:, None, :]
-        cum = torch.cumsum(tau, dim=-1)
-        T_excl = torch.exp(-(cum - tau))
-        alpha = 1.0 - torch.exp(-tau)
-        T_prev = torch.cat([torch.ones_like(cum[..., :1]),
-                            torch.exp(-cum[..., :-1])], dim=-1)
-        w2 = torch.where(T_prev >= st.T_thresh, alpha * T_excl, 0.0)
-        wss.append(w2.sum(dim=-1))
-        depths.append((w2 * t[:, None, :]).sum(dim=-1))
-        imgs.append(torch.stack([(w2 * rgb[i]).sum(dim=-1)
-                                 for i in range(3)], dim=-1))
+        for acc, v in zip((imgs, depths, wss),
+                          _composite(st, sigma, rgb, t, dt)):
+            acc.append(v)
 
     frame, fdepth, fws = _scatter_frame(
         n_tiles, T2, bg_color, [(act_ids, act_mask, torch.cat(imgs, 0),

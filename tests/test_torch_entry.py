@@ -91,7 +91,7 @@ def test_unported_paths_raise(tmp_path):
     from pienerf_tpu_torch import main_gui
     base = ["--device", "cpu", "--workspace", str(tmp_path / "ws"),
             "--frames", "1", "--out_dir", str(tmp_path / "o")] + GUI_FLAGS
-    for extra in (["--max_iter_num", "100"], ["--sim_bf16_b"]):
+    for extra in (["--backbone", "hashgrid"], ["--sim_bf16_b"]):
         with pytest.raises(NotImplementedError):
             main_gui.main(base + extra)
 
