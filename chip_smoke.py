@@ -16,7 +16,15 @@ entry points at full width on the trained checkpoint:
   the Newton frame (interactive.render_frame at max_iter_num 100, the
     field kernel), checked against the port's exact oracle;
   main_gui as a user runs it: fused, --cut, at its default Newton depth,
-    and on the 128-wide checkpoint.
+    and on the 128-wide checkpoint;
+  the tile kernel's paired and block_tiles schedules: each against its
+    plain version and, bit for bit, against the default schedule, then the
+    bench frame through each;
+  the tools: gather_probe (four row-fetch kernels and torch.index_select)
+    and micro_floor (the tile kernel's shell, six arms);
+  the large-scene simulator: a pinned sphere above 6,000 IPs through the
+    cached init, the chunked and the dense operator, bf16 storage and one
+    coupled frame; and main_sim as a user runs it.
 
     python3 chip_smoke.py
 
@@ -69,8 +77,14 @@ CUT_BOUNDS = [-0.30, 0.75, -0.75, 0.60, -0.45, 0.75]
 CUT_FID_RES = (1008, 752)
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line per phase; ``t`` is the seconds since the start."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def smi_line() -> str:
@@ -141,14 +155,22 @@ def ptxas_report(log: str) -> list:
         if m:
             name = m.group(1)
             wd = 128 if "ILi128E" in name or "wide" in name else 64
-            b = re.search(r"ILb(\d)E(?:Lb(\d)ELb(\d)E)?", name)
+            b = re.search(
+                r"ILb(\d)E(?:Lb(\d)ELb(\d)ELb(\d)ELb(\d)E)?", name)
             bf16 = bool(b and b.group(1) == "1")
             if "render_tiles" in name:
                 mode = ("static" if b.group(2) == "0" else
                         "cut" if b.group(3) == "1" else "deformed")
-                label = f"tile {mode}"
-            else:
+                label = (f"tile {mode}"
+                         + (" paired" if b.group(4) == "1" else "")
+                         + (" block" if b.group(5) == "1" else ""))
+            elif "field_eval" in name:
                 mode, label = None, "field"
+            else:                      # the probes: no MLP, no width
+                rows.append({"kernel": re.sub(
+                    r"^_ZN7pienerf\d+|_kernel.*$", "", name)})
+                cur = rows[-1]
+                continue
             # mirrors field_mlp.cuh mlp_smem_floats (+ the Wn x 16 window)
             floats = (18816 + 2 * 64 * 256 if wd == 64
                       else 128 * 128 + 2 * 128 * 128)
@@ -334,6 +356,62 @@ def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
     return bf16_row
 
 
+def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
+                  limit_db=TILE_BF16_DB, base_row=None) -> dict:
+    """A schedule variant of the tile kernel (the paired pack, or
+    ``block_tiles`` tiles per block, or both) on one pass's inputs, f32
+    then bf16, one line each: ``torch.equal`` to the default schedule's
+    kernel output, and against the variant's own plain version as
+    ``tile_check`` holds the default (f32 within 1e-4 with the dropped row
+    equal; bf16 at ``limit_db`` or more). Returns the bf16 row with the
+    variant's ms beside the default's (timed in turns), the plain version's
+    ms and the bound, which is the default schedule's: the same function."""
+    import torch
+    vkw = dict(kw, block_tiles=block_tiles)
+    row = None
+    for spec in specs:
+        ko = tk.render_tiles(spec, pw_variant, *args, **vkw)
+        base = tk.render_tiles(spec, pw, *args, **kw)
+        stats = {}
+        po = tk.render_tiles_plain(spec, pw_variant, *args, **vkw,
+                                   stats=stats)
+        torch.cuda.synchronize()
+        f32 = spec.compute_dtype == "float32"
+        row = dict(dtype=spec.compute_dtype, block_tiles=block_tiles,
+                   paired=pw_variant is not pw,
+                   equals_default=bool(torch.equal(ko, base)),
+                   max_abs_err=float((ko[:, 0:5] - po[:, 0:5]).abs().max()),
+                   dropped_equal=bool(torch.equal(ko[:, 5], po[:, 5])),
+                   executed_segments=stats["segments"])
+        if f32:
+            emit(phase, **row)
+            assert row["max_abs_err"] <= 1e-4 and row["dropped_equal"], row
+        else:
+            row["psnr_rgb"] = psnr(ko[:, 0:3].cpu().numpy(),
+                                   po[:, 0:3].cpu().numpy())
+        assert row["equals_default"], row
+    spec16 = specs[1]
+
+    def run_variant():
+        return tk.render_tiles(spec16, pw_variant, *args, **vkw)
+
+    def run_default():
+        return tk.render_tiles(spec16, pw, *args, **kw)
+    ms_d = [cuda_ms(run_default, 5)]
+    ms_v = [cuda_ms(run_variant, 5), cuda_ms(run_variant, 5)]
+    ms_d.append(cuda_ms(run_default, 5))
+    row.update(ms=float(np.mean(ms_v)), default_ms=float(np.mean(ms_d)),
+               ms_reps=ms_v, default_ms_reps=ms_d, limit_db=limit_db,
+               plain_ms=cuda_ms(lambda: tk.render_tiles_plain(
+                   spec16, pw_variant, *args, **vkw), 1))
+    if base_row is not None:
+        row.update(bound_ms=base_row["bound_ms"],
+                   bound_by=base_row["bound_by"])
+    emit(phase, **row)
+    assert row["psnr_rgb"] >= limit_db and row["dropped_equal"], row
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -345,11 +423,15 @@ def main() -> None:
     from pienerf_tpu_torch.io.checkpoint import load_native, save_native
     from pienerf_tpu_torch.kernels import _build
     from pienerf_tpu_torch.kernels import field as fk
+    from pienerf_tpu_torch.kernels import probes as pk
     from pienerf_tpu_torch.kernels import tile as tk
     from pienerf_tpu_torch.models import network
     from pienerf_tpu_torch.ops import beam_bend
     from pienerf_tpu_torch.render import interactive, pipeline
+    from pienerf_tpu_torch.io.ply import read_ply, write_ply
     from pienerf_tpu_torch.sim import solver as sim
+    from pienerf_tpu_torch.tools import gather_probe, micro_floor
+    from pienerf_tpu_torch.tools.timing import ms_per_call
     from pienerf_tpu_torch.weights import field_from_numpy
 
     dev = torch.device("cuda", 0)
@@ -358,11 +440,22 @@ def main() -> None:
     def reset_counts():
         fk.field_eval.launches = dict.fromkeys(fk.WIDTHS, 0)
         tk.render_tiles.launches = dict.fromkeys(tk.render_tiles.launches, 0)
+        for fn in pk.FETCH_FNS.values():
+            fn.launches = 0
+        pk.floor_shell.launches = 0
+
+    def tile_name(mode, wd, schedule):
+        return (f"tile_{mode}_paired" if schedule == "paired" else
+                f"tile_{mode}_w{wd}" + ("_block" if schedule == "block"
+                                        else ""))
 
     def read_counts():
         out = {f"field_w{w}": k for w, k in fk.field_eval.launches.items()}
-        out.update({f"tile_{m}_w{w}": k
-                    for (m, w), k in tk.render_tiles.launches.items()})
+        out.update({tile_name(*key): k
+                    for key, k in tk.render_tiles.launches.items()})
+        out.update({f"fetch_{n}": fn.launches
+                    for n, fn in pk.FETCH_FNS.items()})
+        out["floor_shell"] = pk.floor_shell.launches
         return out
 
     def only(**launched):
@@ -457,18 +550,20 @@ def main() -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
-    def chained(phase, settings, weights, tile_key):
+    def chained(phase, settings, weights, tile_key, n_reps=3, n_prof=5):
         """Main path 1 with these settings and weights: 20 chained frames
-        with the launch counts read around them, then 3 x 10 timed frames
-        and 5 under torch.profiler (where a frame's time goes: the stages
+        with the launch counts read around them, then n_reps x 10 timed
+        frames and n_prof under torch.profiler (where a frame's time goes: the stages
         are pipeline.py's named ranges). Returns (frame-0 state, frame-0
-        counters, launches)."""
+        counters, launches, and frame 0's image with the median ms per
+        frame and the tile kernel's device ms per frame)."""
         reset_counts()
         state = state_rest
         for fi in range(20):
             state, out = frame(state, fi, settings, weights)
             if fi == 0:
                 state0 = state
+                img0 = out["tiles_image"]
                 counters0 = {k: int(out[k]) for k in
                              ("dropped_beam", "dropped_window",
                               "n_tile_overflow", "n_active")}
@@ -480,7 +575,7 @@ def main() -> None:
         assert launches == only(**{tile_key: 20}), launches
         reps = []
         fi = 20
-        for _ in range(3):
+        for _ in range(n_reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(10):
@@ -496,17 +591,19 @@ def main() -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
+            for _ in range(n_prof):
                 state, out = frame(state, fi, settings, weights)
                 fi += 1
             torch.cuda.synchronize()
-        emit(f"{phase}_profile",
-             **frame_profile(prof, 5, float(np.median(reps))))
-        return state0, counters0, launches
+        fp = frame_profile(prof, n_prof, float(np.median(reps)))
+        emit(f"{phase}_profile", **fp)
+        return state0, counters0, launches, dict(
+            img0=img0, ms_per_frame=float(np.median(reps)),
+            tile_kernel_ms=fp["tile_kernel_device_ms"])
 
     # ---- main path 1
-    state0, drops0, frame_launches = chained("frame", ist, pw,
-                                             "tile_deformed_w64")
+    state0, drops0, frame_launches, frame_info = chained(
+        "frame", ist, pw, "tile_deformed_w64")
 
     # ---- tile kernel against its plain version at frame 0's state, both
     # widths (the inputs do not depend on the width)
@@ -575,8 +672,8 @@ def main() -> None:
 
     # ---- the 128-wide student on main path 1
     ist_w = ist._replace(spec=spec16_w)
-    _, drops0_w, wframe_launches = chained("wide_frame", ist_w, pw_w,
-                                           "tile_deformed_w128")
+    _, drops0_w, wframe_launches, _ = chained("wide_frame", ist_w, pw_w,
+                                              "tile_deformed_w128")
     assert drops0_w == drops0, (drops0_w, drops0)
     # the f32 fused frames of the two widths at the fidelity state
     ist_ntw = ist_nt._replace(spec=spec32_w)
@@ -720,6 +817,7 @@ def main() -> None:
         state, out = cut_frame(state, fi, cache)
         if fi == 0:
             state0_c = state
+            cut_img0 = out["tiles_image"]
             cut0 = {k: int(out[k]) for k in
                     ("n_active", "dropped_beam", "dropped_window",
                      "n_tile_overflow")}
@@ -878,6 +976,271 @@ def main() -> None:
     assert cfid_launches["field_w64"] > 0
     assert pcut >= 55.0, pcut
 
+    # ---- the paired schedule (the 64-wide net from the block-diagonal
+    # pack) in the three modes, on the inputs of the checks above: against
+    # its plain version, and bit for bit against the default schedule
+    pw_p = fk.pack_weights_paired(field, spec32, dev)
+    rows_p = {
+        "deformed": variant_check(
+            "tile_kernel_paired", tk, (spec32, spec16), pw, pw_p, args, kw,
+            base_row=tile_row),
+        "static": variant_check(
+            "tile_kernel_paired_static", tk, (spec32, spec16), pw, pw_p,
+            args_s, kw_s, limit_db=TILE_BF16_DB_STATIC,
+            base_row=rows_c["static"]),
+        "cut": variant_check(
+            "tile_kernel_paired_cut", tk, (spec32, spec16), pw, pw_p, args_b,
+            kw_b, base_row=rows_c["cut"])}
+
+    # ---- block_tiles: B = 4, and the first odd B that does not divide the
+    # slot count (the bench's 1,248 slots take 5, the cut pass's 3),
+    # against B = 1, in one mode per width
+    def odd_b(n_slots):
+        return next(b for b in (3, 5, 7) if n_slots % b)
+    rows_b = {}
+    for B in (4, odd_b(args[0].shape[0])):
+        rows_b[64, B] = variant_check(
+            "tile_kernel_block", tk, (spec32, spec16), pw, pw, args, kw,
+            block_tiles=B, base_row=tile_row)
+    for B in (4, odd_b(args_b[0].shape[0])):
+        # on the embedded checkpoint, where tile_check holds the wide f32
+        # rule (a filled pack can flip a ray's T_thresh test against the
+        # plain version's summation order)
+        rows_b[128, B] = variant_check(
+            "tile_kernel_block_w128", tk, (spec32_w, spec16_w), pw_w, pw_w,
+            args_b, kw_b, block_tiles=B, base_row=rows_c["cut_w128"])
+    # both at once
+    variant_check("tile_kernel_paired_block", tk, (spec32, spec16), pw, pw_p,
+                  args, kw, block_tiles=4, base_row=tile_row)
+
+    # ---- the bench frame through each schedule: frame 0 is the default
+    # frame bit for bit, counters included
+    _, drops0_p, pframe_launches, pframe_info = chained(
+        "paired_frame", ist, pw_p, "tile_deformed_paired", n_reps=1,
+        n_prof=2)
+    _, drops0_b, bframe_launches, bframe_info = chained(
+        "block_frame", ist._replace(block_tiles=4), pw,
+        "tile_deformed_w64_block", n_reps=1, n_prof=2)
+    for name, d0, info in (("paired_frame", drops0_p, pframe_info),
+                           ("block_frame", drops0_b, bframe_info)):
+        equal = bool(torch.equal(info["img0"], frame_info["img0"]))
+        emit(name, frame0=d0, frame0_equals_default=equal,
+             ms_per_frame=info["ms_per_frame"],
+             default_ms_per_frame=frame_info["ms_per_frame"],
+             tile_kernel_ms=info["tile_kernel_ms"],
+             default_tile_kernel_ms=frame_info["tile_kernel_ms"])
+        assert d0 == drops0 and equal, (name, d0, drops0)
+
+    # main path 2 with the paired pack: the cache pass (paired static) and
+    # 10 chained cut frames (paired cut), frame 0 equal to the default's
+    reset_counts()
+    cache_p = interactive.render_static_cache(ist_c, pw_p, pose, intr_c, Hc,
+                                              Wc, cb)
+    state = rest_c
+    for fi in range(10):
+        state, out = cut_frame(state, fi, cache_p, ist_c, pw_p)
+        if fi == 0:
+            cut0_p = {k: int(out[k]) for k in cut0_w}
+            cut_equal = bool(torch.equal(out["tiles_image"], cut_img0))
+        assert bool(torch.isfinite(out["tiles_image"]).all()), fi
+    torch.cuda.synchronize()
+    pcut_launches = read_counts()
+    emit("paired_cut_frame", frame0=cut0_p, frame0_equals_default=cut_equal,
+         launches=pcut_launches)
+    assert pcut_launches == only(tile_static_paired=1, tile_cut_paired=10), \
+        pcut_launches
+    assert cut_equal and all(cut0_p[k] == cut0[k] for k in cut0_p)
+
+    # ---- the row-fetch probes as the tool runs them (B = 65,536 rows of
+    # 512 bytes; tables of 2^11, 2^13 and 2^19 rows): every arm equals
+    # table[idx] or the tool raises
+    PROBE_ROWS, PROBE_T = 1 << 16, 1 << 13
+    reset_counts()
+    probe = gather_probe.run(dev, PROBE_ROWS, [1 << 11, PROBE_T, 1 << 19],
+                             seed=0, reps=20)
+    torch.cuda.synchronize()
+    probe_launches = read_counts()
+    assert probe_launches == only(**{f"fetch_{n}": probe_launches[
+        f"fetch_{n}"] for n in pk.FETCHES}), probe_launches
+    # the kernels line reads each fetch at T = 2^13: error against the
+    # plain version, the plain version's ms, the bytes this run's indices
+    # need (the rows they name read once, the output written once)
+    rng_p = np.random.RandomState(0)
+    table = torch.as_tensor(rng_p.standard_normal(
+        (PROBE_T, pk.ROW)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng_p.randint(0, PROBE_T, PROBE_ROWS).astype(
+        np.int32), device=dev)
+    ref = pk.fetch_plain(table, idx)
+    fetch_plain_ms = ms_per_call(lambda: pk.fetch_plain(table, idx), dev, 20)
+    fetch_bytes = (int(torch.unique(idx).numel()) * pk.ROW * 4
+                   + PROBE_ROWS * 4 + PROBE_ROWS * pk.ROW * 4)
+    fetch_rows = {}
+    for n, arm in zip(pk.FETCHES, ("A_onehot", "D_dma", "E_take",
+                                   "B_dynslice")):
+        out_n = pk.FETCH_FNS[n](table, idx)
+        fetch_rows[n] = dict(
+            max_abs_err=float((out_n - ref).abs().max()),
+            equal=bool(torch.equal(out_n, ref)),
+            ms=probe[f"{arm}_T{PROBE_T}"]["ms_per_call"],
+            plain_ms=fetch_plain_ms,
+            bound_ms=fetch_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
+            library_ms=probe[f"C_index_select_T{PROBE_T}"]["ms_per_call"])
+        assert fetch_rows[n]["equal"], n
+    probe_bounds = {
+        T: (u * pk.ROW * 4 + PROBE_ROWS * 4 + PROBE_ROWS * pk.ROW * 4)
+        / PEAK_BYTES * 1e3 for T, u in probe.pop("unique_rows").items()}
+    emit("gather_probe", rows=PROBE_ROWS, row_bytes=pk.ROW * 4, arms=probe,
+         bound_ms_by_table=probe_bounds,
+         bound_g_rows_per_s_read_only=PEAK_BYTES / (pk.ROW * 4) / 1e9,
+         bound_g_rows_per_s_read_write=PEAK_BYTES / (2 * pk.ROW * 4) / 1e9,
+         launches=probe_launches, kernels_line_T=PROBE_T,
+         fetch_plain_ms=fetch_plain_ms)
+
+    # ---- the tile kernel's shell: six arms at A = 1248 as the tool runs
+    # them (all slots inactive), then with some slots active
+    SHELL_A, SHELL_B, SHELL_BS, SHELL_P = 1248, 4, 134, 256
+    reset_counts()
+    floor_ms = micro_floor.run(dev, SHELL_A, SHELL_B, SHELL_BS, SHELL_P,
+                               reps=50)
+    torch.cuda.synchronize()
+    floor_launches = read_counts()
+    assert floor_launches == only(floor_shell=floor_launches["floor_shell"])
+    sc_act = torch.zeros((SHELL_A, 8), device=dev)
+    sc_act[:, 2] = torch.as_tensor(
+        rng_p.randint(0, 2, SHELL_A).astype(np.float32), device=dev)
+    shell_ref = pk.floor_shell_plain(sc_act)
+    shell_err = 0.0
+    for arm in micro_floor.ARMS:
+        out_a = pk.floor_shell(*micro_floor.arm_inputs(
+            arm, sc_act, SHELL_BS, SHELL_P), block_tiles=SHELL_B)
+        assert torch.equal(out_a, shell_ref), arm
+        shell_err = max(shell_err, float((out_a - shell_ref).abs().max()))
+    assert float(shell_ref.sum()) == 256.0 * float(sc_act[:, 2].sum()) > 0
+    shell_bytes = SHELL_A * (8 * 4 + SHELL_BS * 4 + 8 * 256 * 4
+                             + SHELL_P * 16 * 4 + 8 * 256 * 4)
+    shell_row = dict(
+        max_abs_err=shell_err, ms=floor_ms["full"],
+        plain_ms=ms_per_call(lambda: pk.floor_shell_plain(sc_act), dev, 20),
+        bound_ms=shell_bytes / PEAK_BYTES * 1e3, bound_by="bytes")
+    emit("micro_floor", tiles=SHELL_A, block_tiles=SHELL_B, ms=floor_ms,
+         launches=floor_launches, plain_ms=shell_row["plain_ms"],
+         bound_ms=shell_row["bound_ms"])
+
+    # ---- the large-scene simulator: the pinned sphere at a sim_dx that
+    # puts it above the dense-operator threshold, so the chunked operator
+    # runs; init through the cache (a miss, then a hit)
+    import shutil
+    dx_big = 0.036
+    cb_ = np.arange(-r0, r0 + 1e-6, dx_big)
+    xb, yb, zb = np.meshgrid(cb_, cb_, cb_, indexing="ij")
+    pts_big = np.stack([xb.ravel(), yb.ravel(), zb.ravel()], 1)
+    pts_big = pts_big[np.linalg.norm(pts_big, axis=1) <= r0]
+    nb = pts_big.shape[0]
+    pin_big = pts_big[:, 2] < -0.3
+    big_args = (pts_big, np.full(nb, 0.1), np.full(nb, 1e5),
+                np.full(nb, 1e5), pin_big)
+    big_kw = dict(dt=1e-2, iters=10, bbox=np.array([2.0, 2.0, 2.0]), kres=7,
+                  dx=dx_big, gravity=(0.0, 0.0, 0.0), stiff=1e5,
+                  base=np.array([-1.0, -1.0, -1.0]))
+    cache_dir = os.path.join(ROOT, "build", "smoke_sim_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    consts_b, rest_b, aux_b = sim.sim_init_cached(
+        *big_args, cache_dir=cache_dir, device=dev, **big_kw)
+    miss_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    consts_h, _, aux_h = sim.sim_init_cached(
+        *big_args, cache_dir=cache_dir, device=dev, **big_kw)
+    hit_s = time.perf_counter() - t0
+    n_ip_b = int(aux_b["n_ip"])
+    assert 6500 <= n_ip_b <= 10000 and consts_b.B is None, n_ip_b
+    assert len(os.listdir(cache_dir)) == 1 and int(aux_h["n_ip"]) == n_ip_b
+    for name in sim.SimConstants._fields:
+        a_, b_ = getattr(consts_b, name), getattr(consts_h, name)
+        assert (torch.equal(a_, b_) if isinstance(a_, torch.Tensor)
+                else a_ == b_), name
+    t0 = time.perf_counter()
+    consts_d, rest_d, _ = sim.sim_init(*big_args, device=dev,
+                                       dense_operator=True, **big_kw)
+    dense_init_s = time.perf_counter() - t0
+    vid_b = int(np.argmax(consts_b.ip_pos[:, 2].cpu().numpy()))
+
+    def spring_b(st, fi):
+        p_ip = consts_b.ip_pos[vid_b] + torch.einsum(
+            "ia,iad->d", consts_b.IP_Nx[vid_b],
+            st.ddof[consts_b.IP_kernel[vid_b]])
+        ang = torch.tensor(0.25 * fi, device=dev)
+        target = consts_b.ip_pos[vid_b] + 0.25 * torch.stack(
+            [torch.cos(ang), torch.sin(ang), torch.zeros((), device=dev)])
+        return torch.clamp(1e5 * (target - p_ip), -5e5, 5e5)
+
+    # 20 spring-drag steps on the chunked operator; the dense operator
+    # follows the same forces; every chunked step runs twice from the same
+    # state (the node scatter is deterministic)
+    st_c, st_d = rest_b, rest_d
+    dense_err = 0.0
+    for fi in range(20):
+        f = spring_b(st_c, fi)
+        st_in = sim.update_force(consts_b, st_c, vid_b, f)
+        st_c = sim.sim_step(consts_b, st_in)
+        assert torch.equal(sim.sim_step(consts_b, st_in).ddof, st_c.ddof), fi
+        st_d = sim.sim_step(consts_d, sim.update_force(consts_d, st_d, vid_b,
+                                                       f))
+        dense_err = max(dense_err, float(
+            (st_d.ddof - st_c.ddof).abs().max() / st_c.ddof.abs().max()))
+    assert bool(torch.isfinite(st_c.ddof).all())
+    pts_def = sim.point_positions(consts_b, st_c).cpu().numpy()
+    pin_move = float(np.abs(pts_def[pin_big] - pts_big[pin_big]).max())
+    free_move = float(np.abs(pts_def - pts_big).max())
+
+    def step_ms(consts, st):
+        sim.sim_step(consts, st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            st = sim.sim_step(consts, st)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(st.ddof).all())
+        return (time.perf_counter() - t0) / 5 * 1e3
+    consts_bf = sim.cast_B_bf16(consts_b)
+    ms_chunked = [step_ms(consts_b, st_c)]
+    ms_dense = [step_ms(consts_d, st_d), step_ms(consts_d, st_d)]
+    ms_chunked.append(step_ms(consts_b, st_c))
+    ms_bf16 = step_ms(consts_bf, st_c)
+    st_bf = sim.sim_step(consts_bf, st_c)
+    bf16_err = float((st_bf.ddof - sim.sim_step(consts_b, st_c).ddof).abs()
+                     .max() / st_c.ddof.abs().max())
+    # one coupled frame on it, through the tile kernel
+    ist_big = ist._replace(bend=bst._replace(ip_dx=1.05 * dx_big))
+    reset_counts()
+    st_f, out_big = pipeline.interactive_frame_step(
+        ist_big, consts_b, st_c, pw, pose, intr, H, W, 1.0, vid_b,
+        spring_b(st_c, 20))
+    torch.cuda.synchronize()
+    big_launches = read_counts()
+    t0 = time.perf_counter()
+    pipeline.interactive_frame_step(ist_big, consts_b, st_f, pw, pose, intr,
+                                    H, W, 1.0, vid_b, spring_b(st_f, 21))
+    torch.cuda.synchronize()
+    big_frame_ms = (time.perf_counter() - t0) * 1e3
+    emit("big_sim", sim_dx=dx_big, n_ip=n_ip_b, n_k=int(aux_b["n_k"]),
+         chunks=list(consts_b.chunk_mu.shape),
+         node_gather=list(consts_b.node_gather.shape),
+         init_miss_s=miss_s, init_hit_s=hit_s, dense_init_s=dense_init_s,
+         steps=20, pinned_max_move=pin_move, max_move=free_move,
+         deterministic=True, dense_vs_chunked_rel=dense_err, limit=2e-5,
+         ms_per_step_chunked=ms_chunked, ms_per_step_dense=ms_dense,
+         ms_per_step_bf16=ms_bf16, bf16_step_rel=bf16_err,
+         frame=dict(n_active=int(out_big["n_active"]),
+                    dropped_beam=int(out_big["dropped_beam"]),
+                    dropped_window=int(out_big["dropped_window"]),
+                    ms=big_frame_ms), launches=big_launches)
+    assert dense_err <= 2e-5, dense_err
+    assert pin_move <= 1e-2 < free_move, (pin_move, free_move)
+    assert bool(torch.isfinite(out_big["tiles_image"]).all())
+    assert int(out_big["n_active"]) > 0
+    assert big_launches == only(tile_deformed_w64=1), big_launches
+
     # ---- the port's main_gui as a user runs it: fused, --cut, at its
     # default Newton depth (max_iter_num 100, num_seek_IP 1), and on the
     # 128-wide checkpoint
@@ -885,12 +1248,14 @@ def main() -> None:
 
     def main_gui(phase, extra, workspace="runs/quality_mlp_800"):
         out_dir = os.path.join(ROOT, "build", f"smoke_{phase}_frames")
+        # the sim cache of a workspace goes under build/ or is off
+        cache = [] if workspace.startswith("build") else ["--sim_cache", "0"]
         cmd = [sys.executable, "-m", "pienerf_tpu_torch.main_gui",
                "--workspace", workspace, "--exp_name", "cube",
                "--backbone", "mlp", "--sim_dx", "0.2", "--bound", "0.5",
                "--W", "400", "--H", "400", "--radius", "2.5", "--frames",
                "3", "--out_dir", out_dir, "--kres", "4",
-               "--timing_on"] + extra
+               "--timing_on"] + cache + extra
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                              timeout=600)
@@ -911,11 +1276,42 @@ def main() -> None:
     main_gui("main_gui_w128", fused_flags,
              workspace=os.path.relpath(wide_ws, ROOT))
 
+    # ---- main_sim as a user runs it, on a written PLY (the cube of the
+    # verify recipe: pinned on one side, sagging under gravity)
+    g = np.linspace(0.3, 0.7, 8) - 0.5
+    gx, gy, gz = np.meshgrid(g, g, g, indexing="ij")
+    cube = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], 1)
+    ncube = len(cube)
+    cube_ply = os.path.join(ROOT, "build", "smoke_cube.ply")
+    write_ply(cube_ply, cube, vp=np.full(ncube, 1e-3),
+              pin=(cube[:, 1] > 0.15).astype(float), lam=np.full(ncube, 1e4),
+              mu=np.full(ncube, 1e4), mass=np.full(ncube, 0.1))
+    sim_out = os.path.join(ROOT, "build", "smoke_sim_out")
+    shutil.rmtree(sim_out, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pienerf_tpu_torch.main_sim", "--ply",
+         cube_ply, "--steps", "30", "--sim_dx", "0.2", "--kres", "4",
+         "--bound", "0.5", "--out_dir", sim_out],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    plys = sorted(os.listdir(sim_out)) if os.path.isdir(sim_out) else []
+    emit("main_sim", rc=res.returncode, seconds=time.perf_counter() - t0,
+         plys=plys, tail=res.stdout.strip().splitlines()[-2:])
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert plys == [f"pnt_{i:05d}.ply" for i in range(0, 30, 10)], plys
+    last = read_ply(os.path.join(sim_out, plys[-1]))
+    last = np.stack([last[k] for k in ("x", "y", "z")], 1)
+    assert np.isfinite(last).all() and last.shape == cube.shape
+    assert (last[cube[:, 1] <= 0.15, 1] - cube[cube[:, 1] <= 0.15, 1]
+            ).mean() < 0.0
+
     # ---- every (kernel, mode, width) with its launches on its main path:
     # field kernel, the Newton frame (Wd 64) and the wide fidelity oracle
     # (Wd 128); tile kernel, main path 1 (deformed) and main path 2 (the
     # cache pass and the cut frames), at each width
     def row(name, source, replaces, launches, reading):
+        """One entry of the kernels line; ``library_ms`` only where one
+        PyTorch call computes the same function."""
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": reading.get("max_abs_err",
@@ -923,12 +1319,15 @@ def main() -> None:
                 "ms": reading["ms"], "plain_ms": reading["plain_ms"],
                 "bound_ms": reading["bound_ms"],
                 "bound_by": reading.get("bound_by", "operations"),
-                "library_ms": None}
+                "library_ms": reading.get("library_ms")}
 
     fsrc = ("pienerf_tpu_torch/csrc/field_kernel.cu",
             "pienerf_tpu/ops/pallas/field_kernel.py:134")
     tsrc = ("pienerf_tpu_torch/csrc/tile_kernel.cu",
             "pienerf_tpu/ops/pallas/tile_kernel.py:238")
+    tpsrc = ("pienerf_tpu_torch/csrc/tile_kernel_paired.cu", tsrc[1])
+    psrc = "pienerf_tpu_torch/csrc/probe_kernels.cu"
+    probe_lines = {"onehot": 83, "dma": 127, "take": 187, "dynslice": 217}
     kernels = [
         row("field_kernel", *fsrc, newton_launches["field_w64"],
             field_rows[64]["float32"]),
@@ -946,6 +1345,26 @@ def main() -> None:
             wcut_launches["tile_static_w128"], rows_c["static_w128"]),
         row("tile_kernel_cut_w128", *tsrc, wcut_launches["tile_cut_w128"],
             rows_c["cut_w128"]),
+        # the schedules: the paired deformed mode and block_tiles on their
+        # bench frames; the paired static and cut modes on a cut frame run
+        # below with the paired pack
+        row("tile_kernel_paired", *tpsrc,
+            pframe_launches["tile_deformed_paired"], rows_p["deformed"]),
+        row("tile_kernel_paired_static", *tpsrc,
+            pcut_launches["tile_static_paired"], rows_p["static"]),
+        row("tile_kernel_paired_cut", *tpsrc,
+            pcut_launches["tile_cut_paired"], rows_p["cut"]),
+        row("tile_kernel_block",
+            "pienerf_tpu_torch/csrc/tile_kernel_block.cu", tsrc[1],
+            bframe_launches["tile_deformed_w64_block"], rows_b[64, 4]),
+    ] + [
+        row(f"{n}_fetch", psrc,
+            f"tools/pallas_gather_probe.py:{probe_lines[n]}",
+            probe_launches[f"fetch_{n}"], fetch_rows[n])
+        for n in pk.FETCHES
+    ] + [
+        row("floor_shell", psrc, "tools/micro_floor.py:56",
+            floor_launches["floor_shell"], shell_row),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,6 +34,11 @@
 //     outputs with the same `accumulate`; the weights are staged one layer
 //     at a time (at most 64 KB); the 128 points' activations live in two
 //     [128 features][128 points] buffers (128 KB).
+//
+// The paired schedule of the tile kernel (Net64 only) stages the same
+// compact weights from the block-diagonal pack (stage_weights_paired) and
+// runs a sigma layer beside a color layer per pass over the inputs
+// (paired_layer).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,22 +88,32 @@ __device__ __forceinline__ float rnd(float v) {
   }
 }
 
-// Stage layer L of the pack pw [7, WD, WD] into sw as [in][outp] (all
-// threads of the block take part; the caller synchronises before use).
+// Stage layer L's live [in, outp] extent from `src` (row stride
+// `src_stride` floats) into sw as [in][outp], rounded to the compute dtype
+// (all threads of the block take part; the caller synchronises before
+// use).
 template <bool BF16, class N, int L>
-__device__ __forceinline__ void stage_layer(float* __restrict__ sw,
-                                            const float* __restrict__ pw) {
-  constexpr int IN = N::in(L), OUTP = N::outp(L), WD = N::kWd;
+__device__ __forceinline__ void stage_block(float* __restrict__ sw,
+                                            const float* __restrict__ src,
+                                            int src_stride) {
+  constexpr int IN = N::in(L), OUTP = N::outp(L);
   constexpr int Q = OUTP / 4;                 // float4 per row
-  const float* src = pw + (size_t)L * WD * WD;
   for (int e = threadIdx.x; e < IN * Q; e += blockDim.x) {
     const int i = e / Q;
     const int o = (e - i * Q) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(src + i * WD + o);
+    const float4 v =
+        *reinterpret_cast<const float4*>(src + i * src_stride + o);
     *reinterpret_cast<float4*>(sw + i * OUTP + o) =
         make_float4(rnd<BF16>(v.x), rnd<BF16>(v.y), rnd<BF16>(v.z),
                     rnd<BF16>(v.w));
   }
+}
+
+// Stage layer L of the pack pw [7, WD, WD].
+template <bool BF16, class N, int L>
+__device__ __forceinline__ void stage_layer(float* __restrict__ sw,
+                                            const float* __restrict__ pw) {
+  stage_block<BF16, N, L>(sw, pw + (size_t)L * N::kWd * N::kWd, N::kWd);
 }
 
 // Stage every layer of a net whose compact weights fit (Net64).
@@ -114,6 +129,52 @@ __device__ __forceinline__ void stage_weights(float* sw,
   stage_layer<BF16, N, 6>(sw + N::off(6), pw);
 }
 
+// Stage a 64-wide net from the paired pack [4, 128, 128]
+// (kernels/field.py pack_weights_paired): position l holds sigma layer l
+// in the diagonal block [0:64, 0:64] and color layer l in [64:128,
+// 64:128]. Only those blocks are read, into the same compact layout as
+// stage_weights; the zero off-diagonal blocks and the identity tail of the
+// shorter chain are never touched.
+template <bool BF16, class N>
+__device__ __forceinline__ void stage_weights_paired(
+    float* sw, const float* __restrict__ pw) {
+  static_assert(N::kWd == 64, "only the 64-wide net pairs");
+  constexpr int P = 128;                      // paired tile side
+  const float* col = pw + 64 * P + 64;        // the color block of tile 0
+  stage_block<BF16, N, 0>(sw + N::off(0), pw + 0 * P * P, P);
+  stage_block<BF16, N, 1>(sw + N::off(1), pw + 1 * P * P, P);
+  stage_block<BF16, N, 2>(sw + N::off(2), pw + 2 * P * P, P);
+  stage_block<BF16, N, 3>(sw + N::off(3), pw + 3 * P * P, P);
+  stage_block<BF16, N, 4>(sw + N::off(4), col + 0 * P * P, P);
+  stage_block<BF16, N, 5>(sw + N::off(5), col + 1 * P * P, P);
+  stage_block<BF16, N, 6>(sw + N::off(6), col + 2 * P * P, P);
+}
+
+// acc[j] += w_row[j] * hi for one input row of a layer's weights (NACC
+// consecutive floats in shared memory), as float4 or float2 loads.
+template <int NACC>
+__device__ __forceinline__ void fma_row(const float* __restrict__ w_row,
+                                        float hi, float (&acc)[NACC]) {
+  static_assert(NACC % 2 == 0, "outputs come in pairs");
+  if constexpr (NACC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < NACC; j += 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(w_row + j);
+      acc[j + 0] = __fmaf_rn(wv.x, hi, acc[j + 0]);
+      acc[j + 1] = __fmaf_rn(wv.y, hi, acc[j + 1]);
+      acc[j + 2] = __fmaf_rn(wv.z, hi, acc[j + 2]);
+      acc[j + 3] = __fmaf_rn(wv.w, hi, acc[j + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NACC; j += 2) {
+      const float2 wv = *reinterpret_cast<const float2*>(w_row + j);
+      acc[j + 0] = __fmaf_rn(wv.x, hi, acc[j + 0]);
+      acc[j + 1] = __fmaf_rn(wv.y, hi, acc[j + 1]);
+    }
+  }
+}
+
 // NACC outputs of one layer for one point: acc[j] = sum_i w[i][j] h[i];
 // w is a row-major block with row stride WSTRIDE in shared memory. The
 // point's activations live in a shared-memory column (element i at
@@ -125,31 +186,11 @@ template <int IN, int NACC, int WSTRIDE, bool BF16>
 __device__ __forceinline__ void accumulate(const float* __restrict__ w,
                                            const float* __restrict__ h,
                                            int stride, float (&acc)[NACC]) {
-  static_assert(NACC % 2 == 0, "outputs come in pairs");
 #pragma unroll
   for (int j = 0; j < NACC; ++j) acc[j] = 0.f;
 #pragma unroll 2
   for (int i = 0; i < IN; ++i) {
-    const float hi = h[i * stride];
-    if constexpr (NACC % 4 == 0) {
-#pragma unroll
-      for (int j = 0; j < NACC; j += 4) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(w + i * WSTRIDE + j);
-        acc[j + 0] = __fmaf_rn(wv.x, hi, acc[j + 0]);
-        acc[j + 1] = __fmaf_rn(wv.y, hi, acc[j + 1]);
-        acc[j + 2] = __fmaf_rn(wv.z, hi, acc[j + 2]);
-        acc[j + 3] = __fmaf_rn(wv.w, hi, acc[j + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NACC; j += 2) {
-        const float2 wv =
-            *reinterpret_cast<const float2*>(w + i * WSTRIDE + j);
-        acc[j + 0] = __fmaf_rn(wv.x, hi, acc[j + 0]);
-        acc[j + 1] = __fmaf_rn(wv.y, hi, acc[j + 1]);
-      }
-    }
+    fma_row<NACC>(w + i * WSTRIDE, h[i * stride], acc);
   }
 }
 
@@ -175,6 +216,39 @@ __device__ __forceinline__ void last(const float* __restrict__ w,
   accumulate<IN, OUTP, OUTP, BF16>(w, h, stride, acc);
 #pragma unroll
   for (int j = 0; j < OUT; ++j) o[j] = rnd<BF16>(acc[j]);
+}
+
+// One position of the paired chain for one thread: the sigma layer
+// (IN_S -> 64, ReLU, written back over its own column S) beside the color
+// layer (IN_C -> OUTP_C, rounded into `c`, for the caller to store), as two
+// independent FMA chains in one pass over the inputs. All sums finish
+// before anything is stored, so S is updated in place; each output's sum
+// is still one chain in increasing input order, as in `accumulate`.
+template <int IN_S, int IN_C, int OUTP_C, bool BF16>
+__device__ __forceinline__ void paired_layer(const float* __restrict__ wS,
+                                             const float* __restrict__ wC,
+                                             float* S, const float* C,
+                                             int stride,
+                                             float (&c)[OUTP_C]) {
+  constexpr int WD = 64;
+  constexpr int IN_B = IN_S < IN_C ? IN_S : IN_C;
+  float s[WD];
+#pragma unroll
+  for (int j = 0; j < WD; ++j) s[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < OUTP_C; ++j) c[j] = 0.f;
+  for (int i = 0; i < IN_B; ++i) {
+    fma_row<WD>(wS + i * WD, S[i * stride], s);
+    fma_row<OUTP_C>(wC + i * OUTP_C, C[i * stride], c);
+  }
+  for (int i = IN_B; i < IN_S; ++i) fma_row<WD>(wS + i * WD, S[i * stride], s);
+  for (int i = IN_B; i < IN_C; ++i) {
+    fma_row<OUTP_C>(wC + i * OUTP_C, C[i * stride], c);
+  }
+#pragma unroll
+  for (int j = 0; j < WD; ++j) S[j * stride] = fmaxf(rnd<BF16>(s[j]), 0.f);
+#pragma unroll
+  for (int j = 0; j < OUTP_C; ++j) c[j] = rnd<BF16>(c[j]);
 }
 
 // Degree-4 real SH of a unit direction, rounded to the compute dtype

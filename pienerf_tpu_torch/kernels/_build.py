@@ -22,7 +22,10 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
-SOURCES = {"field": "field_kernel.cu", "tile": "tile_kernel.cu"}
+SOURCES = {"field": "field_kernel.cu", "tile": "tile_kernel.cu",
+           "tile_block": "tile_kernel_block.cu",
+           "tile_paired": "tile_kernel_paired.cu",
+           "probes": "probe_kernels.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]

@@ -56,6 +56,32 @@ def pack_weights(params, spec: NetworkSpec, device) -> torch.Tensor:
     return out
 
 
+def pack_weights_paired(params, spec: NetworkSpec, device) -> torch.Tensor:
+    """Block-diagonal sigma || color pairs for the paired tile kernel:
+    position li holds diag(sigma_li or I, color_li or I) as one [128, 128]
+    tile, [max(n_sigma, n_color), 128, 128] f32. The shorter chain is padded
+    with identity blocks at the tail; the off-diagonal blocks are zero.
+    Only a 64-wide net pairs (the wide student fills the tile alone)."""
+    if kernel_width(spec) != 64:
+        raise ValueError("paired packing co-schedules two 64-wide chains; "
+                         "the 128-wide student packs with pack_weights")
+    flat = pack_weights(params, spec, device)                 # [L, 64, 64]
+    ns, nc = spec.num_layers, spec.num_layers_color
+    lp = max(ns, nc)
+    out = torch.zeros((lp, 128, 128), dtype=torch.float32, device=device)
+    eye = torch.eye(64, dtype=torch.float32, device=device)
+    for li in range(lp):
+        out[li, :64, :64] = flat[li] if li < ns else eye
+        out[li, 64:, 64:] = flat[ns + li] if li < nc else eye
+    return out
+
+
+def is_paired(spec: NetworkSpec, packed_w: torch.Tensor) -> bool:
+    """A 128-wide pack for a 64-wide net can only be the paired layout
+    (the wide student's spec has kernel width 128)."""
+    return packed_w.shape[-1] == 128 and kernel_width(spec) == 64
+
+
 def encode_rows(x, spec: NetworkSpec, cdt: torch.dtype) -> torch.Tensor:
     """Fourier features [F, N] rounded to cdt (the kernels' encoding)."""
     return freq_encode(x, spec.n_freqs, spec.bound,
@@ -88,6 +114,36 @@ def mlp_plain(packed_w: torch.Tensor, spec: NetworkSpec, enc: torch.Tensor,
     return sigma, torch.sigmoid(hc[:3].float())
 
 
+def mlp_paired_plain(packed_w: torch.Tensor, spec: NetworkSpec, enc,
+                     sh: torch.Tensor, geo_prev: torch.Tensor):
+    """One pass of the paired chain (tile_kernel.py ``paired_chain``): this
+    segment's sigma chain beside the previous segment's color chain, as
+    max(n_sigma, n_color) block-diagonal [128, 128] products on the stacked
+    column [enc | 0 ; sh | geo_prev | 0]. ReLU applies to a half only
+    between its own chain's layers; the shorter chain's identity tail
+    passes its output through. ``enc`` None is the drain pass (sigma input
+    zeros). Inputs feature-major in the compute dtype, M columns. Returns
+    (sigma [M] f32, geo [15, M] compute dtype, rgb_prev [3, M] f32)."""
+    cdt = torch_dtype(spec.compute_dtype)
+    ns, nc = spec.num_layers, spec.num_layers_color
+    m = sh.shape[1]
+    dev = sh.device
+    top = torch.zeros((64, m), dtype=cdt, device=dev)
+    if enc is not None:
+        top[:enc.shape[0]] = enc
+    hp = torch.cat([top, sh, geo_prev,
+                    torch.zeros((33, m), dtype=cdt, device=dev)], 0)
+    for li in range(max(ns, nc)):
+        w = packed_w[li].to(cdt).float()
+        hp = (w.T @ hp.float()).to(cdt)
+        if li < ns - 1:
+            hp[:64] = torch.relu(hp[:64])
+        if li < nc - 1:
+            hp[64:] = torch.relu(hp[64:])
+    sigma = torch.exp(torch.clamp(hp[0].float(), -15.0, 15.0))
+    return sigma, hp[1:16], torch.sigmoid(hp[64:67].float())
+
+
 def _stack(x) -> torch.Tensor:
     return torch.stack(list(x), 0) if isinstance(x, (tuple, list)) else x
 
@@ -96,6 +152,9 @@ def field_eval_plain(packed_w: torch.Tensor, spec: NetworkSpec, x, d
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch field_eval: x, d are 3-tuples of [N] component
     tensors (or [3, N]). Returns (sigma [N], rgb [3, N])."""
+    if is_paired(spec, packed_w):
+        raise ValueError("field_eval takes the [7, Wd, Wd] pack; the paired "
+                         "layout is the tile kernel's")
     cdt = torch_dtype(spec.compute_dtype)
     x = _stack(x)
     d = _stack(d)
@@ -104,18 +163,23 @@ def field_eval_plain(packed_w: torch.Tensor, spec: NetworkSpec, x, d
     return mlp_plain(packed_w, spec, enc, sh)
 
 
-def check_kernel_spec(spec: NetworkSpec, packed_w: torch.Tensor) -> int:
+def check_kernel_spec(spec: NetworkSpec, packed_w: torch.Tensor,
+                      allow_paired: bool = False) -> int:
     """The CUDA kernels are specialised to the nets of ``KERNEL_NETS``,
-    each packed [7, Wd, Wd]. Returns Wd."""
+    each packed [7, Wd, Wd]; with ``allow_paired`` (the tile kernel) the
+    64-wide net may also come in the paired [4, 128, 128] layout of
+    ``pack_weights_paired``. Returns the net's width Wd."""
     sd, cd = layer_dims(spec)
+    shape = tuple(packed_w.shape)
     for wd, dims in KERNEL_NETS.items():
-        if (sd, cd) == dims and tuple(packed_w.shape) == (7, wd, wd):
+        if (sd, cd) == dims and (shape == (7, wd, wd) or (
+                allow_paired and wd == 64 and shape == (4, 128, 128))):
             return wd
     raise NotImplementedError(
         f"the CUDA field kernels take the 51-64-64-64-16 / 31-64-64-3 net "
-        f"packed [7, 64, 64] or the 63-128-128-128-16 / 31-128-128-3 net "
-        f"packed [7, 128, 128]; got sigma {sd}, color {cd}, pack "
-        f"{tuple(packed_w.shape)}")
+        f"packed [7, 64, 64] (the tile kernel also its paired [4, 128, 128] "
+        f"layout) or the 63-128-128-128-16 / 31-128-128-3 net packed "
+        f"[7, 128, 128]; got sigma {sd}, color {cd}, pack {shape}")
 
 
 def check_arg(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -5,10 +5,14 @@ Port of ``pienerf_tpu.ops.pallas.tile_kernel`` with one tile per block, at
 both packed widths (``kernels.field.KERNEL_NETS``: Wd 64 and the 128-wide
 student), in its three frame modes: deformed (bend every sample), static
 (``deformed=False``: no candidates, no bending) and cut (``deformed=True,
-cut=True``: bend only inside the cut box). The paired and ``block_tiles``
-variants are not ported yet (ROADMAP.md §2). ``render_tiles`` launches the
-kernel for CUDA tensors and takes ``render_tiles_plain`` only for CPU
-tensors.
+cut=True``: bend only inside the cut box). Two schedule variants ride on
+every mode: ``paired`` (64-wide nets packed by
+``kernels.field.pack_weights_paired``: each sample's sigma chain runs beside
+the previous sample's color chain, rgb composites one segment late) and
+``block_tiles`` = B > 1 (one thread block renders B consecutive tiles).
+Both give the default schedule's output bit for bit. ``render_tiles``
+launches the kernel for CUDA tensors and takes ``render_tiles_plain`` only
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from pienerf_tpu_torch.kernels import _build
 from pienerf_tpu_torch.kernels.field import (WIDTHS, check_arg,
                                              check_kernel_spec, encode_rows,
+                                             is_paired, mlp_paired_plain,
                                              mlp_plain)
 from pienerf_tpu_torch.models.network import NetworkSpec, torch_dtype
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
@@ -197,9 +202,41 @@ def _bend_segment(x, cand, bs, halo, k_seg, ip_dx, *, K, Ksb, Wn,
     return xm, torch.cat(found_l, 2), dropped
 
 
+def _pad_tiles(B, tile_sc, bin_start, dirs, cand):
+    """Pad the per-tile inputs to a multiple of B tiles with inactive slots
+    (``dirs`` ones, the rest zeros; tile_kernel.py:684-698)."""
+    pad = -tile_sc.shape[0] % B
+    if pad == 0:
+        return tile_sc, bin_start, dirs, cand
+
+    def ext(t, fill):
+        return torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]), fill,
+                                        dtype=t.dtype, device=t.device)], 0)
+    return ext(tile_sc, 0), ext(bin_start, 0), ext(dirs, 1), ext(cand, 0)
+
+
+def _resolve_paired(spec, packed_w, paired) -> bool:
+    """``paired`` None infers the pairing from a 128-wide pack on a 64-wide
+    net (tile_kernel.py:700-709); True demands that layout, False
+    refuses it."""
+    if paired is None:
+        paired = is_paired(spec, packed_w)
+    elif not paired and is_paired(spec, packed_w):
+        raise ValueError("paired=False with a pack_weights_paired pack")
+    if paired:
+        lp = max(spec.num_layers, spec.num_layers_color)
+        if tuple(packed_w.shape) != (lp, 128, 128) or not is_paired(
+                spec, packed_w):
+            raise ValueError(
+                f"paired=True expects the pack_weights_paired layout "
+                f"[{lp}, 128, 128] of a 64-wide net, got "
+                f"{tuple(packed_w.shape)}")
+    return bool(paired)
+
+
 def render_tiles_plain(
     spec: NetworkSpec,
-    packed_w: torch.Tensor,    # [L, Wd, Wd]
+    packed_w: torch.Tensor,    # [L, Wd, Wd], or the paired [lp, 128, 128]
     tile_sc: torch.Tensor,     # [A, 8]  t0, t1, active
     bin_start: torch.Tensor,   # [A, >= K+4] int32
     params: torch.Tensor,      # [24]
@@ -208,6 +245,7 @@ def render_tiles_plain(
     *, K: int, Ks: int, Ksb: int, Wn: int, num_seek: int,
     deformed: bool = True, cut: bool = False,
     stats: Optional[dict] = None,
+    paired: Optional[bool] = None, block_tiles: int = 1,
 ) -> torch.Tensor:
     """Plain PyTorch version of the tile kernel, vectorised over tiles.
     Loops over segments and sub-segments with per-tile alive and skip
@@ -218,7 +256,19 @@ def render_tiles_plain(
     empty-segment skip. Returns out [A, 8, 256] (r, g, b, depth, ws,
     dropped, 0, 0). When given, ``stats["segments"]`` counts the (tile,
     segment) pairs executed, the data-dependent work a bound on the
-    kernel's time is counted from."""
+    kernel's time is counted from.
+
+    ``paired`` follows the reference's pending/drain schedule on the
+    block-diagonal pack: each executed segment's pass evaluates its sigma
+    chain beside the previous executed segment's color chain (from the
+    stored geo features), adds that segment's rgb against its stored
+    weights, and the last pending segment drains after the loop.
+    ``block_tiles`` pads the tiles to a multiple of B with inactive slots
+    and cuts the output back, as the kernel's wrapper does."""
+    paired = _resolve_paired(spec, packed_w, paired)
+    A0 = tile_sc.shape[0]
+    tile_sc, bin_start, dirs, cand = _pad_tiles(
+        max(1, block_tiles), tile_sc, bin_start, dirs, cand)
     dev = tile_sc.device
     cdt = torch_dtype(spec.compute_dtype)
     A = tile_sc.shape[0]
@@ -253,6 +303,13 @@ def render_tiles_plain(
     cum = torch.zeros((A, T2), device=dev)
     dropped = torch.zeros((A,), dtype=torch.int64, device=dev)
     alive = active.clone()
+    if paired:
+        # per tile: the previous executed segment's geo features and
+        # composite weights (f32, as the kernel's scratch), and whether one
+        # is pending
+        geo_prev = torch.zeros((A, 15, T2, Ks), device=dev)
+        w_prev = torch.zeros((A, T2, Ks), device=dev)
+        pending = torch.zeros((A,), dtype=torch.bool, device=dev)
     for s in range(K // Ks):
         run = alive
         if deformed and not cut:
@@ -292,7 +349,11 @@ def render_tiles_plain(
 
         enc = encode_rows(tuple(c.reshape(-1) for c in xm), spec, cdt)
         shs = sh[:, idx][..., None].expand(16, n, T2, Ks).reshape(16, -1)
-        sigma, rgb = mlp_plain(packed_w, spec, enc, shs)
+        if paired:
+            gp = geo_prev[idx].to(cdt).permute(1, 0, 2, 3).reshape(15, -1)
+            sigma, geo, rgb = mlp_paired_plain(packed_w, spec, enc, shs, gp)
+        else:
+            sigma, rgb = mlp_plain(packed_w, spec, enc, shs)
         sigma = sigma.reshape(n, T2, Ks)
         rgb = rgb.reshape(3, n, T2, Ks)
 
@@ -306,14 +367,35 @@ def render_tiles_plain(
         wgt = torch.where(T_prev >= T_thresh,
                           (1.0 - torch.exp(-tau)) * T_prev,
                           torch.zeros_like(tau))
-        acc = torch.stack([(wgt * rgb[0]).sum(2), (wgt * rgb[1]).sum(2),
-                           (wgt * rgb[2]).sum(2), (wgt * t).sum(2),
+        # paired: rgb is the previous executed segment's, against its
+        # stored weights (zero the first time through)
+        wc = (w_prev[idx] * pending[idx].float()[:, None, None]
+              if paired else wgt)
+        acc = torch.stack([(wc * rgb[0]).sum(2), (wc * rgb[1]).sum(2),
+                           (wc * rgb[2]).sum(2), (wgt * t).sum(2),
                            wgt.sum(2)], 1)                        # [n,5,T2]
         out[idx, 0:5] += acc
         cum[idx] = cum[idx] + csum[..., -1]
         alive[idx] = torch.exp(-cum[idx]).amax(dim=1) >= T_thresh
+        if paired:
+            geo_prev[idx] = geo.float().reshape(15, n, T2, Ks).permute(
+                1, 0, 2, 3)
+            w_prev[idx] = wgt
+            pending[idx] = True
+    if paired:
+        # drain: the last pending segment's color chain (sigma input zeros)
+        idx = torch.nonzero(pending)[:, 0]
+        n = idx.shape[0]
+        if n:
+            gp = geo_prev[idx].to(cdt).permute(1, 0, 2, 3).reshape(15, -1)
+            shs = sh[:, idx][..., None].expand(16, n, T2, Ks).reshape(16, -1)
+            _, _, rgb = mlp_paired_plain(packed_w, spec, None, shs, gp)
+            rgb = rgb.reshape(3, n, T2, Ks)
+            wp = w_prev[idx]
+            out[idx, 0:3] += torch.stack(
+                [(wp * rgb[i]).sum(2) for i in range(3)], 1)
     out[:, 5] = torch.where(active, dropped, 0).float()[:, None]
-    return out
+    return out[:A0]
 
 
 def render_tiles(
@@ -326,12 +408,18 @@ def render_tiles(
     cand: torch.Tensor,
     *, K: int, Ks: int, Ksb: int, Wn: int, num_seek: int,
     deformed: bool = True, cut: bool = False,
+    paired: Optional[bool] = None, block_tiles: int = 1,
 ) -> torch.Tensor:
     """Run the fused tile kernel over A tiles -> out [A, 8, 256].
 
     CPU tensors take render_tiles_plain; CUDA tensors launch the kernel in
-    the mode ``mode_of(deformed, cut)`` at the pack's width Wd and count
-    the launch in ``render_tiles.launches[(mode, Wd)]``."""
+    the mode ``mode_of(deformed, cut)`` at the net's width Wd and count the
+    launch in ``render_tiles.launches[(mode, Wd, schedule)]`` (schedule
+    "default", "paired" or "block"; a paired launch with B > 1 counts as
+    paired). ``paired`` None infers the
+    pairing from the pack; ``block_tiles`` B > 1 renders B tiles per thread
+    block, A padded to a multiple of B with inactive slots and the output
+    cut back to A."""
     A, P = cand.shape[0], cand.shape[1]
     BS = bin_start.shape[1]
     if P < Wn:
@@ -342,38 +430,61 @@ def render_tiles(
         raise ValueError(f"K={K}, Ks={Ks}, Ksb={Ksb} must nest")
     if not 1 <= num_seek <= 3:
         raise ValueError(f"num_seek {num_seek} must be 1..3")
+    B = int(block_tiles)
+    if B < 1:
+        raise ValueError(f"block_tiles {block_tiles} must be >= 1")
     kw = dict(K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
               deformed=deformed, cut=cut)
     if tile_sc.device.type == "cpu":
         return render_tiles_plain(spec, packed_w, tile_sc, bin_start, params,
-                                  dirs, cand, **kw)
+                                  dirs, cand, **kw, paired=paired,
+                                  block_tiles=B)
     dev = tile_sc.device
     mode = mode_of(deformed, cut)
-    wd = check_kernel_spec(spec, packed_w)
+    wd = check_kernel_spec(spec, packed_w, allow_paired=True)
+    paired = _resolve_paired(spec, packed_w, paired)
+    A0 = A
+    tile_sc, bin_start, dirs, cand = _pad_tiles(B, tile_sc, bin_start, dirs,
+                                                cand)
+    A = tile_sc.shape[0]
     for t, name, dtype, shape in (
             (tile_sc, "tile_sc", torch.float32, (A, 8)),
             (bin_start, "bin_start", torch.int32, (A, BS)),
             (params, "params", torch.float32, (24,)),
             (dirs, "dirs", torch.float32, (A, 8, T2)),
             (cand, "cand", torch.float32, (A, P, PACK_FAST)),
-            (packed_w, "packed_w", torch.float32, (7, wd, wd))):
+            (packed_w, "packed_w", torch.float32,
+             (4, 128, 128) if paired else (7, wd, wd))):
         check_arg(t, name, dtype, shape, dev)
     out = torch.empty((A, 8, T2), dtype=torch.float32, device=dev)
-    lib = _build.library("tile")
-    fn = lib.pienerf_render_tiles
+    # the paired and the block_tiles instantiations are libraries of their
+    # own (one nvcc each, side by side)
+    name = "tile_paired" if paired else "tile_block" if B > 1 else "tile"
+    lib = _build.library(name)
+    fn = getattr(lib, "pienerf_render_" + name.replace("tile", "tiles"))
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
     rc = fn(tile_sc.data_ptr(), bin_start.data_ptr(), params.data_ptr(),
             dirs.data_ptr(), cand.data_ptr(), packed_w.data_ptr(),
-            out.data_ptr(), A, BS, P, K, Ks, Ksb, Wn, num_seek,
+            out.data_ptr(), A, B, BS, P, K, Ks, Ksb, Wn, num_seek,
             float(spec.bound), int(spec.compute_dtype == "bfloat16"),
             int(deformed), int(cut), wd, stream)
     _build.check(lib, rc, "render_tiles")
-    render_tiles.launches[(mode, wd)] += 1
-    return out
+    render_tiles.launches[launch_key(mode, wd, paired, B)] += 1
+    return out[:A0]
 
 
-render_tiles.launches = {(m, wd): 0 for m in MODES for wd in WIDTHS}
+def launch_key(mode: str, wd: int, paired: bool, block_tiles: int):
+    """The ``render_tiles.launches`` entry a launch counts in: (mode, net
+    width, schedule), the schedule one of ``SCHEDULES``."""
+    return (mode, wd, "paired" if paired
+            else "block" if block_tiles > 1 else "default")
+
+
+SCHEDULES = ("default", "paired", "block")
+render_tiles.launches = {
+    (m, wd, v): 0 for m in MODES for wd in WIDTHS for v in SCHEDULES
+    if not (v == "paired" and wd != 64)}

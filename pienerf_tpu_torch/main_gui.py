@@ -99,9 +99,6 @@ def main(argv=None):
     from pienerf_tpu_torch.utils.camera import OrbitCamera
 
     device = resolve_device(ns.device)
-    if cfg.sim_bf16_b:
-        raise NotImplementedError("--sim_bf16_b is not ported yet "
-                                  "(ROADMAP.md queue 1 item 3)")
 
     spec, pw = _load_field(cfg, device)
 
@@ -109,12 +106,20 @@ def main(argv=None):
     if not os.path.exists(ply_path):
         raise SystemExit(f"annotated physics PLY not found: {ply_path}")
     d = read_physics_ply(ply_path)
-    consts, state, aux = sim.sim_init(
-        d["pos"], d["mass"], d["mu"], d["lam"], d["pin"],
+    init_kw = dict(
         dt=cfg.sim_dt / cfg.sim_substeps, iters=cfg.sim_iters,
         bbox=np.array([2.0 * cfg.bound] * 3), kres=ns.kres, dx=cfg.sim_dx,
         gravity=tuple(ns.gravity), stiff=cfg.sim_stiff,
         base=np.array([-cfg.bound] * 3), device=device)
+    if cfg.sim_cache:
+        consts, state, aux = sim.sim_init_cached(
+            d["pos"], d["mass"], d["mu"], d["lam"], d["pin"],
+            cache_dir=os.path.join(cfg.workspace, "sim_cache"), **init_kw)
+    else:
+        consts, state, aux = sim.sim_init(
+            d["pos"], d["mass"], d["mu"], d["lam"], d["pin"], **init_kw)
+    if cfg.sim_bf16_b:
+        consts = sim.cast_B_bf16(consts)
     print(f"[sim] {aux['n_ip']} IPs, {aux['n_k']} kernel nodes")
 
     bst = beam_bend.BeamBendSettings(

@@ -7,7 +7,9 @@ the tile kernel; ``max_iter_num == 1``) with the cut-split into bend and
 static tile classes and the camera-fixed static cache, the binned Newton
 frame (``render_frame``, any ``max_iter_num``; the field kernel), and the
 exact-bending oracle. Either kernel width (64 or the 128-wide student)
-follows from the packed weights. Every tensor stays on the device of the
+follows from the packed weights, and so does the fused frame's paired
+schedule (``kernels.field.pack_weights_paired``); ``block_tiles`` sets its
+tiles per thread block. Every tensor stays on the device of the
 pose.
 """
 
@@ -48,6 +50,7 @@ class InteractiveSettings(NamedTuple):
     cut_split: bool = True         # cut mode: tiles whose rays miss the cut
     #                                box take the static kernel pass
     cut_static_frac: float = 0.95  # slots of that static class, of n_tiles
+    block_tiles: int = 1           # fused kernel: tiles per thread block
 
 
 def _check_supported(st: InteractiveSettings) -> None:
@@ -258,7 +261,8 @@ def _fused_tile_pass(st, packed_w, ip_pack, p_def, o, pose, intrinsics,
     args, kw, dropped_beam = tile_kernel_inputs(
         st, ip_pack, p_def, o, pose, intrinsics, H, W, act_ids, act_mask,
         bbmin, bbmax, **mode)
-    out = tile_kernel.render_tiles(st.spec, packed_w, *args, **kw)
+    out = tile_kernel.render_tiles(st.spec, packed_w, *args, **kw,
+                                   block_tiles=st.block_tiles)
     imgs = out[:, 0:3, :].transpose(1, 2)                         # [A,T2,3]
     dropped_window = torch.where(act_mask, out[:, 5, 0], 0.0).sum()
     return imgs, out[:, 3, :], out[:, 4, :], dropped_beam, dropped_window
@@ -358,6 +362,7 @@ def render_static_cache(
 def render_frame_fused(
     settings: InteractiveSettings,
     packed_w: torch.Tensor,       # [7, Wd, Wd] kernels.field.pack_weights
+    #                               or pack_weights_paired's [4, 128, 128]
     ip_pack: torch.Tensor,        # [nIP, 16] beam_bend.pack_ip_data_fast
     p_def: torch.Tensor,          # [nIP, 3]
     pose: torch.Tensor,           # [4, 4]

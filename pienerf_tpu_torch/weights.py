@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from pienerf_tpu_torch.models.network import FieldMLP, NetworkSpec, layer_dims
-from pienerf_tpu_torch.sim.solver import SimConstants, SimState
+from pienerf_tpu_torch.sim.solver import (SimConstants, SimState,
+                                          node_gather_list)
 
 
 def field_from_numpy(tree: Mapping[str, Any], spec: NetworkSpec,
@@ -42,16 +43,20 @@ def _fields(obj) -> dict:
 
 def sim_consts_from_numpy(consts, device) -> SimConstants:
     """SimConstants fields (named tuple or mapping, numpy leaves; fields
-    the port does not use are ignored) -> port SimConstants on device."""
+    the port does not use are ignored) -> port SimConstants on device. The
+    port's own ``node_gather`` is built from ``chunk_nodes``; a missing
+    dense ``B`` stays None."""
     src = _fields(consts)
-    if src.get("B") is None:
-        raise NotImplementedError(
-            "constants without the dense B operator (> 6000 IPs) need the "
-            "chunked Dc operator, not ported yet (ROADMAP.md queue 1 item 3)")
     out = {}
     for name in SimConstants._fields:
-        v = src[name]
-        if name in ("dt", "dx"):
+        if name == "node_gather":
+            v = node_gather_list(np.asarray(src["chunk_nodes"]),
+                                 np.asarray(src["dof_rest"]).shape[0])
+        else:
+            v = src.get(name)
+        if v is None:
+            out[name] = None
+        elif name in ("dt", "dx"):
             out[name] = float(v)
         elif name == "iters":
             out[name] = int(v)

@@ -1,10 +1,15 @@
 """The port's CUDA sources run on the CPU (no card, no nvcc): each ``.cu``
-file is compiled by the host C++ compiler against a small header that
-emulates the CUDA subset the kernels use (one ``std::thread`` per CUDA
-thread of a block, ``std::barrier`` for ``__syncthreads``, blocks in turn),
-and its C entry point is held against the plain PyTorch version on small
-inputs. This checks the kernels' indexing, barriers and control flow; the
-card's compiler, timing and rounding are checked by ``chip_smoke.py``."""
+file of ``kernels/_build.py:SOURCES`` is compiled by the host C++ compiler
+against a small header that emulates the CUDA subset the kernels use (one
+``std::thread`` per CUDA thread of a block, ``std::barrier`` for
+``__syncthreads``, ``cp.async`` as an immediate copy, blocks in turn), and
+its C entry point is held against the plain PyTorch version on small
+inputs: the field kernel, the tile kernel in every mode and schedule
+(default, paired, ``block_tiles``), the four fetch probes and the shell.
+Nothing here is left to the card alone for want of emulation: the probes
+use no mbarrier and no bulk copy. This checks the kernels' indexing,
+barriers and control flow; the card's compiler, timing and rounding are
+checked by ``chip_smoke.py``."""
 
 import ctypes
 import os
@@ -16,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+from pienerf_tpu_torch.kernels import _build
 from pienerf_tpu_torch.kernels import field as tfk
+from pienerf_tpu_torch.kernels import probes as tpr
 from pienerf_tpu_torch.kernels import tile as ttk
 from pienerf_tpu_torch.models import network as tnet
 from pienerf_tpu_torch.ops import beam_bend as tbb
@@ -131,33 +138,52 @@ inline float __bfloat162float(__nv_bfloat16 h) {
 }
 """
 
+# cp.async as an immediate copy: the emulation checks the ring's indexing
+# and group counting, not the overlap
+CUDA_PIPELINE_H = r"""
+#pragma once
+#include <cstring>
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(int) {}
+"""
+
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """Both kernel sources built for the emulation, loaded with ctypes."""
+    """Every kernel source built for the emulation, loaded with ctypes."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to build the emulation")
     d = tmp_path_factory.mktemp("cuda_emu")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
-    out = {}
-    for name, src in (("field", "field_kernel.cu"), ("tile", "tile_kernel.cu")):
+    (d / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
+    # kern<<<grid, block, smem, stream>>>(args) -> emu_launch(...), in the
+    # headers too
+    for src in os.listdir(CSRC):
         with open(os.path.join(CSRC, src)) as f:
             code = f.read()
-        # kern<<<grid, block, smem, stream>>>(args) -> emu_launch(...)
         code = re.sub(r"(\w+)<<<(.*?),\s*(\w+)>>>\(",
                       r"emu_launch(\1, \2, (cudaStream_t)\3, ", code)
-        code += "\nnamespace pienerf { float4 smem4[232448 / 16]; }\n"
-        cpp = d / f"{name}.cpp"
-        cpp.write_text(code)
+        if src.endswith(".cu"):
+            code += "\nnamespace pienerf { float4 smem4[232448 / 16]; }\n"
+            src = src[:-3] + ".cpp"
+        (d / src).write_text(code)
+    procs = {}
+    for name, src in _build.SOURCES.items():      # all compilers at once
         so = d / f"lib{name}.so"
-        r = subprocess.run(
+        procs[name] = (so, subprocess.Popen(
             [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
-             "-shared", "-Wno-unknown-pragmas", f"-I{d}", f"-I{CSRC}", "-o",
-             str(so), str(cpp), "-lpthread"],
-            capture_output=True, text=True, timeout=300)
-        assert r.returncode == 0, r.stderr[-3000:]
+             "-shared", "-Wno-unknown-pragmas", f"-I{d}", "-o", str(so),
+             str(d / (src[:-3] + ".cpp")), "-lpthread"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    out = {}
+    for name, (so, proc) in procs.items():
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
         out[name] = ctypes.CDLL(str(so))
     return out
 
@@ -201,20 +227,31 @@ def test_emulated_field_kernel_matches_plain(libs, wd):
     np.testing.assert_allclose(out[1:], rgb.numpy(), atol=1e-5)
 
 
-def _tile_run(lib, spec, pw, args, kw):
-    a = [t.contiguous().numpy() for t in args]
+def _tile_run(libs, spec, pw, args, kw, block_tiles=1):
+    """The emulated tile kernel as ``kernels.tile.render_tiles`` launches
+    it: the paired library for a paired pack, the tiles padded to a
+    multiple of ``block_tiles``."""
+    paired = tfk.is_paired(spec, pw)
+    A0 = args[0].shape[0]
+    tile_sc, bin_start, dirs, cand = ttk._pad_tiles(
+        block_tiles, args[0], args[1], args[3], args[4])
+    a = [t.contiguous().numpy() for t in
+         (tile_sc, bin_start, args[2], dirs, cand)]
     A, P = a[4].shape[0], a[4].shape[1]
-    out = np.zeros((A, 8, ttk.T2), np.float32)
-    fn = lib.pienerf_render_tiles
+    out = np.full((A, 8, ttk.T2), np.nan, np.float32)
+    fn = (libs["tile_paired"].pienerf_render_tiles_paired if paired
+          else libs["tile_block"].pienerf_render_tiles_block
+          if block_tiles > 1 else libs["tile"].pienerf_render_tiles)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     rc = fn(*(_ptr(t) for t in a), _ptr(pw.numpy()), _ptr(out), A,
-            a[1].shape[1], P, kw["K"], kw["Ks"], kw["Ksb"], kw["Wn"],
-            kw["num_seek"], spec.bound, 0, int(kw["deformed"]),
-            int(kw["cut"]), pw.shape[-1], None)
+            block_tiles, a[1].shape[1], P, kw["K"], kw["Ks"], kw["Ksb"],
+            kw["Wn"], kw["num_seek"], spec.bound,
+            int(spec.compute_dtype == "bfloat16"), int(kw["deformed"]),
+            int(kw["cut"]), tfk.kernel_width(spec), None)
     assert rc == 0
-    return out
+    return out[:A0]
 
 
 def _tile_inputs(mode):
@@ -255,7 +292,7 @@ def _tile_inputs(mode):
 def test_emulated_tile_kernel_matches_plain(libs, wd, mode):
     spec, pw = _weights(wd, 3)
     args, kw = _tile_inputs(mode)
-    out = _tile_run(libs["tile"], spec, pw, args, kw)
+    out = _tile_run(libs, spec, pw, args, kw)
     ref = ttk.render_tiles_plain(spec, pw, *args, **kw).numpy()
     assert ref[:, 4].max() > 0.1                  # real coverage
     # f32 summation order in the MLP and composite, and the host's sinf
@@ -279,7 +316,97 @@ def test_emulated_wide_tile_kernel_equals_64_on_embedded_weights(libs):
     pw128 = tfk.pack_weights(field_from_numpy(embed_wide(params), _spec(128),
                                               CPU), _spec(128), CPU)
     args, kw = _tile_inputs("deformed")
-    o64 = _tile_run(libs["tile"], spec64, pw64, args, kw)
-    o128 = _tile_run(libs["tile"], _spec(128), pw128, args, kw)
+    o64 = _tile_run(libs, spec64, pw64, args, kw)
+    o128 = _tile_run(libs, _spec(128), pw128, args, kw)
     assert o64[:, 4].max() > 0.1
     np.testing.assert_array_equal(o128, o64)
+
+
+@pytest.mark.parametrize("mode,dtype", [
+    ("deformed", "float32"), ("static", "float32"), ("cut", "float32"),
+    ("deformed", "bfloat16")])
+def test_emulated_paired_tile_kernel_equals_unpaired(libs, mode, dtype):
+    """The paired instantiation reads the block-diagonal pack, runs each
+    sample's sigma chain beside the previous sample's color chain and
+    composites rgb one segment late; every sum keeps its order, so the
+    output is the default schedule's bit for bit, and within the f32
+    summation-order tolerance of the paired plain version."""
+    spec = _spec(64)._replace(compute_dtype=dtype)
+    field = tnet.FieldMLP(spec, generator=torch.Generator().manual_seed(3))
+    pw = tfk.pack_weights(field, spec, CPU)
+    pwp = tfk.pack_weights_paired(field, spec, CPU)
+    args, kw = _tile_inputs(mode)
+    ref = _tile_run(libs, spec, pw, args, kw)
+    out = _tile_run(libs, spec, pwp, args, kw)
+    assert ref[:, 4].max() > 0.1
+    np.testing.assert_array_equal(out, ref)
+    if dtype == "float32":
+        plain = ttk.render_tiles_plain(spec, pwp, *args, **kw).numpy()
+        np.testing.assert_allclose(out[:, 0:5], plain[:, 0:5], atol=1e-4)
+        np.testing.assert_array_equal(out[:, 5], plain[:, 5])
+
+
+@pytest.mark.parametrize("mode,wd,paired", [
+    ("deformed", 64, False), ("static", 128, False), ("cut", 64, True)])
+def test_emulated_block_tiles_equals_one_tile_per_block(libs, mode, wd,
+                                                        paired):
+    """B = 3 over 4 tiles (one padded slot, two blocks): each block
+    re-zeroes its per-tile state and stages the 64-wide weights once."""
+    spec = _spec(wd)
+    field = tnet.FieldMLP(spec, generator=torch.Generator().manual_seed(3))
+    pw = (tfk.pack_weights_paired if paired else tfk.pack_weights)(
+        field, spec, CPU)
+    args, kw = _tile_inputs(mode)
+    assert args[0].shape[0] % 3 != 0
+    ref = _tile_run(libs, spec, pw, args, kw)
+    out = _tile_run(libs, spec, pw, args, kw, block_tiles=3)
+    assert ref[:, 4].max() > 0.1
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("which", tpr.FETCHES)
+def test_emulated_fetch_kernels_equal_plain(libs, which):
+    """All four fetch mechanisms run emulated (the asynchronous copies of
+    the dma arm as immediate ones): exact rows, a table whose row count is
+    no multiple of the one-hot chunk, and zero rows for indices outside
+    it."""
+    rng = np.random.RandomState(5)
+    T, B = 300, 1024
+    table = rng.randn(T, tpr.ROW).astype(np.float32)
+    idx = rng.randint(0, T, B).astype(np.int32)
+    idx[7], idx[600] = T, -1
+    out = np.full((B, tpr.ROW), np.nan, np.float32)
+    fn = libs["probes"].pienerf_fetch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert fn(tpr.FETCHES.index(which), _ptr(table), _ptr(idx), _ptr(out), T,
+              B, 1, None) == 0
+    ok = (idx >= 0) & (idx < T)
+    ref = np.zeros_like(out)
+    ref[ok] = tpr.fetch_plain(torch.from_numpy(table),
+                              torch.from_numpy(idx[ok])).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("arm", ["full", "no-bs", "no-cand", "no-dirs",
+                                 "smem-only", "bs-int16"])
+def test_emulated_floor_shell_equals_plain(libs, arm):
+    from pienerf_tpu_torch.tools.micro_floor import arm_inputs
+    A, B, BS, P = 10, 4, 134, 32                     # B does not divide A
+    rng = np.random.RandomState(6)
+    tile_sc = np.zeros((A, 8), np.float32)
+    tile_sc[:, 2] = rng.randint(0, 2, A)
+    sc, bs, dirs, cand = arm_inputs(arm, torch.from_numpy(tile_sc), BS, P)
+    out = np.full((A, 8, tpr.T2), np.nan, np.float32)
+    fn = libs["probes"].pienerf_floor_shell
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+
+    def ptr(t):
+        return None if t is None else _ptr(t.numpy())
+    assert fn(_ptr(tile_sc), ptr(bs), ptr(dirs), ptr(cand), _ptr(out), A, B,
+              BS, P, int(arm == "bs-int16"), float("nan"), None) == 0
+    assert tile_sc[:, 2].min() == 0 and tile_sc[:, 2].max() == 1
+    np.testing.assert_array_equal(out, tpr.floor_shell_plain(sc).numpy())

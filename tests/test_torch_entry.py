@@ -91,14 +91,21 @@ def test_unported_paths_raise(tmp_path):
     from pienerf_tpu_torch import main_gui
     base = ["--device", "cpu", "--workspace", str(tmp_path / "ws"),
             "--frames", "1", "--out_dir", str(tmp_path / "o")] + GUI_FLAGS
-    for extra in (["--backbone", "hashgrid"], ["--sim_bf16_b"]):
-        with pytest.raises(NotImplementedError):
-            main_gui.main(base + extra)
+    with pytest.raises(NotImplementedError):
+        main_gui.main(base + ["--backbone", "hashgrid"])
+    # bf16 storage of the sim operator runs, and the sim cache is written
+    # under the workspace
+    main_gui.main(base + ["--sim_bf16_b", "--H", "32", "--W", "32"])
+    assert len(os.listdir(tmp_path / "ws" / "sim_cache")) == 1
+    assert os.listdir(tmp_path / "o") == ["frame_0000.png"]
 
 
 def test_port_imports_leave_jax_out():
     code = ("import sys; import pienerf_tpu_torch, "
-            "pienerf_tpu_torch.render.pipeline, pienerf_tpu_torch.main_gui; "
+            "pienerf_tpu_torch.render.pipeline, pienerf_tpu_torch.main_gui, "
+            "pienerf_tpu_torch.main_sim, pienerf_tpu_torch.kernels.probes, "
+            "pienerf_tpu_torch.tools.gather_probe, "
+            "pienerf_tpu_torch.tools.micro_floor; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pienerf_tpu' or "
             "m.startswith('pienerf_tpu.')]; print(bad); "

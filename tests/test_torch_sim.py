@@ -43,6 +43,8 @@ def test_sim_init_constants_equal_jax(sims):
     jc, js, jaux, tc, ts, taux = sims
     assert jc.B is not None                  # the dense-operator scene
     for name in tsim.SimConstants._fields:
+        if name == "node_gather":
+            continue            # the port's own scatter list, checked below
         a, b = getattr(tc, name), getattr(jc, name)
         if isinstance(a, torch.Tensor):
             # the same f64 numpy precompute, cast once: exact
@@ -51,9 +53,18 @@ def test_sim_init_constants_equal_jax(sims):
         else:
             assert a == b, name
     assert taux["n_ip"] == jaux["n_ip"] and taux["n_k"] == jaux["n_k"]
+    # node_gather lists, per node and in order, the chunk-node slots that
+    # name it; the padding names the appended zero row
+    flat = np.asarray(jc.chunk_nodes).reshape(-1)
+    ng = tc.node_gather.numpy()
+    for k in range(ng.shape[0]):
+        np.testing.assert_array_equal(ng[k][ng[k] < flat.size],
+                                      np.flatnonzero(flat == k))
+    assert (ng < flat.size).sum() == flat.size
     # weights.sim_consts_from_numpy carries the JAX constants across
     tc2 = sim_consts_from_numpy(jax.device_get(jc), CPU)
     np.testing.assert_array_equal(tc2.B.numpy(), tc.B.numpy())
+    np.testing.assert_array_equal(tc2.node_gather.numpy(), ng)
     assert tc2.IP_kernel.dtype == torch.int64
 
 

@@ -93,8 +93,13 @@ def test_pack_weights_matches_jax_at_128():
     assert tfk.check_kernel_spec(tspec, tpw) == 128
     with pytest.raises(NotImplementedError):   # 128 wide at n_freqs 8
         tfk.check_kernel_spec(tspec._replace(n_freqs=8), tpw)
-    with pytest.raises(NotImplementedError):   # the paired 64-wide layout
-        tfk.check_kernel_spec(tnet.make_spec(bound=1.0), tpw)
+    # a 64-wide net on a [7, 128, 128] pack: neither its own layout nor the
+    # paired one ([4, 128, 128], which the tile kernel alone takes)
+    with pytest.raises(NotImplementedError):
+        tfk.check_kernel_spec(tnet.make_spec(bound=1.0), tpw,
+                              allow_paired=True)
+    assert tfk.check_kernel_spec(tnet.make_spec(bound=1.0), tpw[:4],
+                                 allow_paired=True) == 64
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
