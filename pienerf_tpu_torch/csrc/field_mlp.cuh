@@ -11,18 +11,16 @@
 // distilled 128-wide student) are the two instantiations of `Net`.
 //
 // Arithmetic follows the Pallas kernels (pienerf_tpu/ops/pallas/
-// field_kernel.py:97-171, tile_kernel.py:201-235 and :527-549): every layer
-// reads inputs and weights rounded to the compute dtype, accumulates in
-// f32, and rounds its output back to the compute dtype; ReLU between
-// layers, not after the last. With BF16 the products of two bf16 values are
-// exact in f32, so only the summation order differs from the reference.
-// Every output's sum over inputs is one FMA chain in increasing input
-// order, so zero-padded inputs or weights add exact zeros.
+// field_kernel.py:97-171, tile_kernel.py:201-235 and :527-549) in f32;
+// ReLU between layers, not after the last. Every output's sum over inputs
+// is one FMA chain in increasing input order, so zero-padded inputs or
+// weights add exact zeros. (The encoding and SH(d) below, shared with the
+// bf16 path, round to the compute dtype.)
 //
 // Two ways to run the same layer code, by width:
 //   Net64, `field_point`: one thread evaluates one point. The live
-//     [in, out] extents of the [7, 64, 64] pack (75 KB as f32 rounded to
-//     the compute dtype) are staged once per block in dynamic shared
+//     [in, out] extents of the [7, 64, 64] pack (75 KB as f32) are staged
+//     once per block in dynamic shared
 //     memory. Every thread of a warp reads the same weight address at the
 //     same time, so the loads broadcast; they are float4 wide so one load
 //     feeds four FMAs. Each thread's layer activations sit in two
@@ -39,6 +37,11 @@
 // compact weights from the block-diagonal pack (stage_weights_paired) and
 // runs a sigma layer beside a color layer per pass over the inputs
 // (paired_layer).
+//
+// All of the above is the f32 path, on the CUDA cores. The bf16
+// instantiations of both kernels run the same net on the tensor cores
+// instead, one warp's 32 samples at a time (mma_mlp.cuh, included at the
+// end of this file).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,6 +76,26 @@ struct Net {
   __host__ __device__ static constexpr int wfloats() {   // all layers
     return off(kLayers);
   }
+  // the bf16 tensor-core extents (mma_mlp.cuh): layer l's inputs padded to
+  // whole k16 tiles (the encoding to 64; color layer 0 to SH(d) 16 plus
+  // the sigma head's 16 outputs, a zero row against sigma_raw) and its
+  // outputs to whole n8 tiles (the last color layer's 3 to 8). Layer l's
+  // fragment-ordered weights start at frag_off(l), in uint2 (32 a tile).
+  __host__ __device__ static constexpr int in16(int l) {
+    return l == 0 ? 64 : (l == 4 ? 32 : WD);
+  }
+  __host__ __device__ static constexpr int out8(int l) {
+    return l == 3 ? 16 : (l == 6 ? 8 : WD);
+  }
+  __host__ __device__ static constexpr int frag_off(int l) {
+    int o = 0;
+    for (int k = 0; k < l; ++k) o += in16(k) / 16 * (out8(k) / 8) * 32;
+    return o;
+  }
+  __host__ __device__ static constexpr size_t frag_bytes() {
+    return (size_t)frag_off(kLayers) * 8;
+  }
+  static_assert(kEnc <= 64, "the encoding fills one 64-wide k extent");
 };
 using Net64 = Net<64, 8>;
 using Net128 = Net<128, 10>;
@@ -89,10 +112,9 @@ __device__ __forceinline__ float rnd(float v) {
 }
 
 // Stage layer L's live [in, outp] extent from `src` (row stride
-// `src_stride` floats) into sw as [in][outp], rounded to the compute dtype
-// (all threads of the block take part; the caller synchronises before
-// use).
-template <bool BF16, class N, int L>
+// `src_stride` floats) into sw as [in][outp] (all threads of the block
+// take part; the caller synchronises before use).
+template <class N, int L>
 __device__ __forceinline__ void stage_block(float* __restrict__ sw,
                                             const float* __restrict__ src,
                                             int src_stride) {
@@ -101,32 +123,29 @@ __device__ __forceinline__ void stage_block(float* __restrict__ sw,
   for (int e = threadIdx.x; e < IN * Q; e += blockDim.x) {
     const int i = e / Q;
     const int o = (e - i * Q) * 4;
-    const float4 v =
-        *reinterpret_cast<const float4*>(src + i * src_stride + o);
     *reinterpret_cast<float4*>(sw + i * OUTP + o) =
-        make_float4(rnd<BF16>(v.x), rnd<BF16>(v.y), rnd<BF16>(v.z),
-                    rnd<BF16>(v.w));
+        *reinterpret_cast<const float4*>(src + i * src_stride + o);
   }
 }
 
 // Stage layer L of the pack pw [7, WD, WD].
-template <bool BF16, class N, int L>
+template <class N, int L>
 __device__ __forceinline__ void stage_layer(float* __restrict__ sw,
                                             const float* __restrict__ pw) {
-  stage_block<BF16, N, L>(sw, pw + (size_t)L * N::kWd * N::kWd, N::kWd);
+  stage_block<N, L>(sw, pw + (size_t)L * N::kWd * N::kWd, N::kWd);
 }
 
 // Stage every layer of a net whose compact weights fit (Net64).
-template <bool BF16, class N>
+template <class N>
 __device__ __forceinline__ void stage_weights(float* sw,
                                               const float* __restrict__ pw) {
-  stage_layer<BF16, N, 0>(sw + N::off(0), pw);
-  stage_layer<BF16, N, 1>(sw + N::off(1), pw);
-  stage_layer<BF16, N, 2>(sw + N::off(2), pw);
-  stage_layer<BF16, N, 3>(sw + N::off(3), pw);
-  stage_layer<BF16, N, 4>(sw + N::off(4), pw);
-  stage_layer<BF16, N, 5>(sw + N::off(5), pw);
-  stage_layer<BF16, N, 6>(sw + N::off(6), pw);
+  stage_layer<N, 0>(sw + N::off(0), pw);
+  stage_layer<N, 1>(sw + N::off(1), pw);
+  stage_layer<N, 2>(sw + N::off(2), pw);
+  stage_layer<N, 3>(sw + N::off(3), pw);
+  stage_layer<N, 4>(sw + N::off(4), pw);
+  stage_layer<N, 5>(sw + N::off(5), pw);
+  stage_layer<N, 6>(sw + N::off(6), pw);
 }
 
 // Stage a 64-wide net from the paired pack [4, 128, 128]
@@ -135,19 +154,19 @@ __device__ __forceinline__ void stage_weights(float* sw,
 // 64:128]. Only those blocks are read, into the same compact layout as
 // stage_weights; the zero off-diagonal blocks and the identity tail of the
 // shorter chain are never touched.
-template <bool BF16, class N>
+template <class N>
 __device__ __forceinline__ void stage_weights_paired(
     float* sw, const float* __restrict__ pw) {
   static_assert(N::kWd == 64, "only the 64-wide net pairs");
   constexpr int P = 128;                      // paired tile side
   const float* col = pw + 64 * P + 64;        // the color block of tile 0
-  stage_block<BF16, N, 0>(sw + N::off(0), pw + 0 * P * P, P);
-  stage_block<BF16, N, 1>(sw + N::off(1), pw + 1 * P * P, P);
-  stage_block<BF16, N, 2>(sw + N::off(2), pw + 2 * P * P, P);
-  stage_block<BF16, N, 3>(sw + N::off(3), pw + 3 * P * P, P);
-  stage_block<BF16, N, 4>(sw + N::off(4), col + 0 * P * P, P);
-  stage_block<BF16, N, 5>(sw + N::off(5), col + 1 * P * P, P);
-  stage_block<BF16, N, 6>(sw + N::off(6), col + 2 * P * P, P);
+  stage_block<N, 0>(sw + N::off(0), pw + 0 * P * P, P);
+  stage_block<N, 1>(sw + N::off(1), pw + 1 * P * P, P);
+  stage_block<N, 2>(sw + N::off(2), pw + 2 * P * P, P);
+  stage_block<N, 3>(sw + N::off(3), pw + 3 * P * P, P);
+  stage_block<N, 4>(sw + N::off(4), col + 0 * P * P, P);
+  stage_block<N, 5>(sw + N::off(5), col + 1 * P * P, P);
+  stage_block<N, 6>(sw + N::off(6), col + 2 * P * P, P);
 }
 
 // acc[j] += w_row[j] * hi for one input row of a layer's weights (NACC
@@ -182,7 +201,7 @@ __device__ __forceinline__ void fma_row(const float* __restrict__ w_row,
 // consecutive words); only the NACC accumulators are registers. Keeping
 // the input out of registers lets the input loop stay rolled: fully
 // unrolled register chains made ptxas spill and take minutes.
-template <int IN, int NACC, int WSTRIDE, bool BF16>
+template <int IN, int NACC, int WSTRIDE>
 __device__ __forceinline__ void accumulate(const float* __restrict__ w,
                                            const float* __restrict__ h,
                                            int stride, float (&acc)[NACC]) {
@@ -194,37 +213,35 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ w,
   }
 }
 
-// hidden layer: ReLU(round(w^T h)) into another shared-memory column
-template <int IN, int OUTP, bool BF16>
+// hidden layer: ReLU(w^T h) into another shared-memory column
+template <int IN, int OUTP>
 __device__ __forceinline__ void hidden(const float* __restrict__ w,
                                        const float* __restrict__ h,
                                        float* __restrict__ out, int stride) {
   float acc[OUTP];
-  accumulate<IN, OUTP, OUTP, BF16>(w, h, stride, acc);
+  accumulate<IN, OUTP, OUTP>(w, h, stride, acc);
 #pragma unroll
-  for (int j = 0; j < OUTP; ++j) {
-    out[j * stride] = fmaxf(rnd<BF16>(acc[j]), 0.f);
-  }
+  for (int j = 0; j < OUTP; ++j) out[j * stride] = fmaxf(acc[j], 0.f);
 }
 
-// last layer: round(w^T h) into registers, no activation
-template <int IN, int OUTP, int OUT, bool BF16>
+// last layer: w^T h into registers, no activation
+template <int IN, int OUTP, int OUT>
 __device__ __forceinline__ void last(const float* __restrict__ w,
                                      const float* __restrict__ h, int stride,
                                      float (&o)[OUT]) {
   float acc[OUTP];
-  accumulate<IN, OUTP, OUTP, BF16>(w, h, stride, acc);
+  accumulate<IN, OUTP, OUTP>(w, h, stride, acc);
 #pragma unroll
-  for (int j = 0; j < OUT; ++j) o[j] = rnd<BF16>(acc[j]);
+  for (int j = 0; j < OUT; ++j) o[j] = acc[j];
 }
 
 // One position of the paired chain for one thread: the sigma layer
 // (IN_S -> 64, ReLU, written back over its own column S) beside the color
-// layer (IN_C -> OUTP_C, rounded into `c`, for the caller to store), as two
+// layer (IN_C -> OUTP_C, into `c`, for the caller to store), as two
 // independent FMA chains in one pass over the inputs. All sums finish
 // before anything is stored, so S is updated in place; each output's sum
 // is still one chain in increasing input order, as in `accumulate`.
-template <int IN_S, int IN_C, int OUTP_C, bool BF16>
+template <int IN_S, int IN_C, int OUTP_C>
 __device__ __forceinline__ void paired_layer(const float* __restrict__ wS,
                                              const float* __restrict__ wC,
                                              float* S, const float* C,
@@ -246,9 +263,7 @@ __device__ __forceinline__ void paired_layer(const float* __restrict__ wS,
     fma_row<OUTP_C>(wC + i * OUTP_C, C[i * stride], c);
   }
 #pragma unroll
-  for (int j = 0; j < WD; ++j) S[j * stride] = fmaxf(rnd<BF16>(s[j]), 0.f);
-#pragma unroll
-  for (int j = 0; j < OUTP_C; ++j) c[j] = rnd<BF16>(c[j]);
+  for (int j = 0; j < WD; ++j) S[j * stride] = fmaxf(s[j], 0.f);
 }
 
 // Degree-4 real SH of a unit direction, rounded to the compute dtype
@@ -283,11 +298,10 @@ __device__ __forceinline__ void sh4(float x, float y, float z,
 }
 
 // [c/bound, sin(2^k pi c/bound) k<NF, cos(2^k pi c/bound) k<NF] per axis,
-// by the double-angle ladder (field_kernel.py:97-112), into a column.
-template <bool BF16, int NF>
-__device__ __forceinline__ void encode(float x0, float x1, float x2,
-                                       float bound, float* __restrict__ enc,
-                                       int stride) {
+// by the double-angle ladder (field_kernel.py:97-112): put(i, feature i).
+template <bool BF16, int NF, class Put>
+__device__ __forceinline__ void encode_to(float x0, float x1, float x2,
+                                          float bound, Put put) {
   constexpr int F = 1 + 2 * NF;         // features per axis
   const float c[3] = {x0, x1, x2};
 #pragma unroll
@@ -295,19 +309,28 @@ __device__ __forceinline__ void encode(float x0, float x1, float x2,
     const float cn = c[a] / bound;
     float s = sinf(kPi * cn);
     float co = cosf(kPi * cn);
-    enc[(F * a) * stride] = rnd<BF16>(cn);
-    enc[(F * a + 1) * stride] = rnd<BF16>(s);
-    enc[(F * a + 1 + NF) * stride] = rnd<BF16>(co);
+    put(F * a, rnd<BF16>(cn));
+    put(F * a + 1, rnd<BF16>(s));
+    put(F * a + 1 + NF, rnd<BF16>(co));
 #pragma unroll
     for (int k = 1; k < NF; ++k) {
       const float s2 = 2.0f * s * co;
       const float c2 = co * co - s * s;
       s = s2;
       co = c2;
-      enc[(F * a + 1 + k) * stride] = rnd<BF16>(s);
-      enc[(F * a + 1 + NF + k) * stride] = rnd<BF16>(co);
+      put(F * a + 1 + k, rnd<BF16>(s));
+      put(F * a + 1 + NF + k, rnd<BF16>(co));
     }
   }
+}
+
+// the encoding into a shared-memory column (element i at enc[i * stride])
+template <bool BF16, int NF>
+__device__ __forceinline__ void encode(float x0, float x1, float x2,
+                                       float bound, float* __restrict__ enc,
+                                       int stride) {
+  encode_to<BF16, NF>(x0, x1, x2, bound,
+                      [&](int i, float v) { enc[i * stride] = v; });
 }
 
 // Shared memory a block needs for the MLP. Net64: all weights plus two
@@ -324,11 +347,25 @@ __host__ __device__ constexpr size_t mlp_smem_bytes(int threads) {
   return mlp_smem_floats<N>(threads) * sizeof(float);
 }
 
+// The bf16 tensor-core path (mma_mlp.cuh): every layer's bf16 weights in
+// fragment order, and one staging tile per warp, 32 rows (one a lane) of
+// kTileWords 32-bit words: the encoding in words [0, 32), SH(d) in
+// [kTileSh, kTileSh + 8), sigma and rgb in [kTileOut, kTileOut + 2). The
+// row stride of 44 words puts row g's words 8k + t, for the 8 rows g and
+// 4 columns t of a fragment load, in 32 distinct banks.
+constexpr int kTileWords = 44;
+constexpr int kTileSh = 32;
+constexpr int kTileOut = 40;
+constexpr size_t kWarpTileBytes = 32 * kTileWords * 4;
+template <class N>
+__host__ __device__ constexpr size_t mma_smem_bytes(int threads) {
+  return N::frag_bytes() + (size_t)(threads / 32) * kWarpTileBytes;
+}
+
 // Field at one point with Net64: sigma (f32, before density scale) and
-// rgb. `sh` holds the point's direction encoding from sh4<BF16>; `sw` the
+// rgb. `sh` holds the point's direction encoding from sh4<false>; `sw` the
 // staged weights; `buf` is the block's activation area (2 * 64 *
 // blockDim.x floats).
-template <bool BF16>
 __device__ __forceinline__ void field_point(const float* __restrict__ sw,
                                             float* __restrict__ buf,
                                             float x0, float x1, float x2,
@@ -340,22 +377,22 @@ __device__ __forceinline__ void field_point(const float* __restrict__ sw,
   const int stride = blockDim.x;
   float* A = buf + threadIdx.x;
   float* B = buf + WD * stride + threadIdx.x;
-  encode<BF16, N::kNf>(x0, x1, x2, bound, A, stride);
-  hidden<N::kEnc, WD, BF16>(sw + N::off(0), A, B, stride);
-  hidden<WD, WD, BF16>(sw + N::off(1), B, A, stride);
-  hidden<WD, WD, BF16>(sw + N::off(2), A, B, stride);
+  encode<false, N::kNf>(x0, x1, x2, bound, A, stride);
+  hidden<N::kEnc, WD>(sw + N::off(0), A, B, stride);
+  hidden<WD, WD>(sw + N::off(1), B, A, stride);
+  hidden<WD, WD>(sw + N::off(2), A, B, stride);
   float h4[16];
-  last<WD, 16, 16, BF16>(sw + N::off(3), B, stride, h4);
+  last<WD, 16, 16>(sw + N::off(3), B, stride, h4);
   sigma = expf(fminf(fmaxf(h4[0], -15.f), 15.f));
 
 #pragma unroll
   for (int i = 0; i < 16; ++i) A[i * stride] = sh[i];
 #pragma unroll
   for (int i = 0; i < 15; ++i) A[(16 + i) * stride] = h4[1 + i];
-  hidden<31, WD, BF16>(sw + N::off(4), A, B, stride);
-  hidden<WD, WD, BF16>(sw + N::off(5), B, A, stride);
+  hidden<31, WD>(sw + N::off(4), A, B, stride);
+  hidden<WD, WD>(sw + N::off(5), B, A, stride);
   float c3[3];
-  last<WD, 4, 3, BF16>(sw + N::off(6), A, stride, c3);
+  last<WD, 4, 3>(sw + N::off(6), A, stride, c3);
   r = 1.f / (1.f + expf(-c3[0]));
   g = 1.f / (1.f + expf(-c3[1]));
   b = 1.f / (1.f + expf(-c3[2]));
@@ -365,21 +402,20 @@ __device__ __forceinline__ void field_point(const float* __restrict__ sw,
 // (point p, half g) computes outputs [g * OUTP/2, (g + 1) * OUTP/2) of its
 // point from column h into column out (stride kWidePoints). Both
 // __syncthreads are block-wide: every thread of the block must call it.
-template <bool BF16, class N, int L, bool RELU>
+template <class N, int L, bool RELU>
 __device__ __forceinline__ void wide_layer(float* __restrict__ sw,
                                            const float* __restrict__ pw,
                                            const float* __restrict__ h,
                                            float* __restrict__ out, int g) {
   constexpr int IN = N::in(L), OUTP = N::outp(L), NACC = OUTP / 2;
-  stage_layer<BF16, N, L>(sw, pw);
+  stage_layer<N, L>(sw, pw);
   __syncthreads();                     // weights and the layer input ready
   const int o0 = g * NACC;
   float acc[NACC];
-  accumulate<IN, NACC, OUTP, BF16>(sw + o0, h, kWidePoints, acc);
+  accumulate<IN, NACC, OUTP>(sw + o0, h, kWidePoints, acc);
 #pragma unroll
   for (int j = 0; j < NACC; ++j) {
-    const float v = rnd<BF16>(acc[j]);
-    out[(o0 + j) * kWidePoints] = RELU ? fmaxf(v, 0.f) : v;
+    out[(o0 + j) * kWidePoints] = RELU ? fmaxf(acc[j], 0.f) : acc[j];
   }
   __syncthreads();                     // outputs written; sw free again
 }
@@ -390,7 +426,7 @@ __device__ __forceinline__ void wide_layer(float* __restrict__ sw,
 // and receives sigma and rgb (other threads' arguments are ignored and
 // their outputs untouched). A and B are the two [128][128] activation
 // buffers, sw room for one layer. Block-wide: every thread must call it.
-template <bool BF16, class N>
+template <class N>
 __device__ __forceinline__ void field_points_wide(
     float* __restrict__ sw, float* __restrict__ A, float* __restrict__ B,
     const float* __restrict__ pw, bool owner, float x0, float x1, float x2,
@@ -403,11 +439,11 @@ __device__ __forceinline__ void field_points_wide(
   float* a = A + p;
   float* bb = B + p;
   __syncthreads();                     // earlier readers of A, B are done
-  if (owner) encode<BF16, N::kNf>(x0, x1, x2, bound, a, S);
-  wide_layer<BF16, N, 0, true>(sw, pw, a, bb, half);
-  wide_layer<BF16, N, 1, true>(sw, pw, bb, a, half);
-  wide_layer<BF16, N, 2, true>(sw, pw, a, bb, half);
-  wide_layer<BF16, N, 3, false>(sw, pw, bb, a, half);     // 16 rows in A
+  if (owner) encode<false, N::kNf>(x0, x1, x2, bound, a, S);
+  wide_layer<N, 0, true>(sw, pw, a, bb, half);
+  wide_layer<N, 1, true>(sw, pw, bb, a, half);
+  wide_layer<N, 2, true>(sw, pw, a, bb, half);
+  wide_layer<N, 3, false>(sw, pw, bb, a, half);     // 16 rows in A
   if (owner) {
     sigma = expf(fminf(fmaxf(a[0], -15.f), 15.f));
 #pragma unroll
@@ -415,9 +451,9 @@ __device__ __forceinline__ void field_points_wide(
 #pragma unroll
     for (int i = 0; i < 15; ++i) bb[(16 + i) * S] = a[(1 + i) * S];
   }
-  wide_layer<BF16, N, 4, true>(sw, pw, bb, a, half);
-  wide_layer<BF16, N, 5, true>(sw, pw, a, bb, half);
-  wide_layer<BF16, N, 6, false>(sw, pw, bb, a, half);     // 4 rows in A
+  wide_layer<N, 4, true>(sw, pw, bb, a, half);
+  wide_layer<N, 5, true>(sw, pw, a, bb, half);
+  wide_layer<N, 6, false>(sw, pw, bb, a, half);     // 4 rows in A
   if (owner) {
     r = 1.f / (1.f + expf(-a[0]));
     g = 1.f / (1.f + expf(-a[S]));
@@ -426,3 +462,5 @@ __device__ __forceinline__ void field_points_wide(
 }
 
 }  // namespace pienerf
+
+#include "mma_mlp.cuh"

@@ -55,14 +55,19 @@
 // skip), so the bound counts executed segments x 256 rays x Ks samples.
 //
 // Design: one thread per ray, 256 threads per block; every per-sample
-// intermediate stays on chip (registers, and shared-memory activation
-// columns for the MLP). At Wd 64 each thread runs its ray's sample through
-// the MLP alone (field_point, weights staged once per block); at Wd 128
-// the block runs its 256 samples through the MLP in two passes of 128, two
+// intermediate stays on chip (registers, and shared memory for the MLP).
+// bf16 (every mode, width and schedule): each warp runs its 32 rays'
+// samples through the MLP on the tensor cores (mma_mlp.cuh: mma_field, or
+// mma_field_paired), every layer's bf16 weights staged once per block; the
+// sample loops are block-uniform, so every lane of a warp reaches the MMAs
+// (mma_field's own __syncwarp reconverges the warp after the per-ray
+// bending). f32: at Wd 64 each thread runs its ray's sample through the
+// MLP alone (field_point, weights staged once per block); at Wd 128 the
+// block runs its 256 samples through the MLP in two passes of 128, two
 // threads per sample and one layer's weights staged at a time
-// (field_points_wide), which every thread reaches: the sample loops are
-// block-uniform. The TPU kernel's one-hot MXU fetch
-// becomes a plain indexed read from the sub-segment's candidate window,
+// (field_points_wide), which every thread reaches. The TPU kernel's
+// one-hot MXU fetch becomes a plain indexed read from the sub-segment's
+// candidate window,
 // which the block copies to shared memory (Wn x 16 f32) beside the staged
 // weights. The argmin uses a strict `<` in row order, so ties go to the
 // lowest row as jnp.argmin does, and previously chosen rows are excluded
@@ -98,6 +103,13 @@ __device__ __forceinline__ float sigmoidf(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
+// the block's MLP shared memory: bf16 on the tensor cores, f32 on the
+// CUDA cores
+template <bool BF16, class N>
+__host__ __device__ constexpr size_t mlp_bytes() {
+  return BF16 ? mma_smem_bytes<N>(kT2) : mlp_smem_bytes<N>(kT2);
+}
+
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
           class N>
 __global__ void __launch_bounds__(kT2)
@@ -113,8 +125,15 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   static_assert(!PAIRED || !kWide, "only the 64-wide net pairs");
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);      // weights
-  float* buf = sw + (kWide ? N::kWd * N::kWd : N::wfloats());  // activations
-  float* win = sw + mlp_smem_floats<N>(kT2);  // [Wn, 16], bending modes only
+  [[maybe_unused]] float* buf =                     // f32 activations
+      sw + (kWide ? N::kWd * N::kWd : N::wfloats());
+  // bf16: the weights in fragment order, then one staging tile a warp
+  [[maybe_unused]] uint2* swm = reinterpret_cast<uint2*>(smem4);
+  [[maybe_unused]] uint32_t* wtile = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<char*>(smem4) + N::frag_bytes() +
+      (threadIdx.x >> 5) * kWarpTileBytes);
+  float* win = reinterpret_cast<float*>(  // [Wn, 16], bending modes only
+      reinterpret_cast<char*>(smem4) + mlp_bytes<BF16, N>());
   const int r = threadIdx.x;
 
   const float o[3] = {params[0], params[1], params[2]};
@@ -146,12 +165,16 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
       for (int row = 0; row < 8; ++row) o_t[row * kT2 + r] = 0.f;
       continue;
     }
-    if constexpr (!kWide) {
+    if constexpr (BF16 || !kWide) {
       if (!staged) {                    // tile-uniform, so block-uniform
-        if constexpr (PAIRED) {
-          stage_weights_paired<BF16, N>(sw, pw);
+        if constexpr (BF16 && PAIRED) {
+          stage_mma_weights_paired<N>(swm, pw);
+        } else if constexpr (BF16) {
+          stage_mma_weights<N>(swm, pw);
+        } else if constexpr (PAIRED) {
+          stage_weights_paired<N>(sw, pw);
         } else {
-          stage_weights<BF16, N>(sw, pw);
+          stage_weights<N>(sw, pw);
         }
         __syncthreads();
         staged = true;
@@ -183,6 +206,7 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
 
     float sh[16];
     sh4<BF16>(dv[0], dv[1], dv[2], sh);
+    if constexpr (BF16) mma_stage_sh(wtile + (r & 31) * kTileWords, sh);
 
     // paired: this thread's sigma and color columns; the color column
     // starts as SH(d) || zero geo features (the reference zeroes its
@@ -192,7 +216,9 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
     [[maybe_unused]] float* colC = buf + N::kWd * kT2 + r;
     [[maybe_unused]] float w_prev = 0.f;     // the pending sample's weight
     [[maybe_unused]] bool pending = false;   // block-uniform
-    if constexpr (PAIRED) {
+    // bf16: the pending sample's sigma head, per row tile of the warp
+    [[maybe_unused]] uint32_t head_prev[2][4] = {};
+    if constexpr (PAIRED && !BF16) {
 #pragma unroll
       for (int i = 0; i < 16; ++i) colC[i * kT2] = sh[i];
 #pragma unroll
@@ -327,24 +353,30 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
           // sigma of this sample; (cr, cg, cb) is this sample's color, or
           // with PAIRED the pending sample's
           float sigma, cr, cg, cb;
-          if constexpr (kWide) {
+          if constexpr (BF16 && PAIRED) {
+            mma_field_paired<N>(swm, wtile, head_prev, xm0, xm1, xm2, bound,
+                                sigma, cr, cg, cb);
+          } else if constexpr (BF16) {
+            mma_field<N>(swm, wtile, xm0, xm1, xm2, bound, sigma, cr, cg,
+                         cb);
+          } else if constexpr (kWide) {
             // rays [128 h, 128 h + 128) own the samples of pass h
             for (int h = 0; h < 2; ++h) {
-              field_points_wide<BF16, N>(sw, buf, buf + N::kWd * kWidePoints,
-                                         pw, r / kWidePoints == h, xm0, xm1,
-                                         xm2, bound, sh, sigma, cr, cg, cb);
+              field_points_wide<N>(sw, buf, buf + N::kWd * kWidePoints, pw,
+                                   r / kWidePoints == h, xm0, xm1, xm2, bound,
+                                   sh, sigma, cr, cg, cb);
             }
           } else if constexpr (PAIRED) {
-            encode<BF16, N::kNf>(xm0, xm1, xm2, bound, colS, kT2);
+            encode<false, N::kNf>(xm0, xm1, xm2, bound, colS, kT2);
             {
               float c[N::kWd];
-              paired_layer<N::kEnc, 31, N::kWd, BF16>(
+              paired_layer<N::kEnc, 31, N::kWd>(
                   sw + N::off(0), sw + N::off(4), colS, colC, kT2, c);
 #pragma unroll
               for (int j = 0; j < N::kWd; ++j) {
                 colC[j * kT2] = fmaxf(c[j], 0.f);
               }
-              paired_layer<N::kWd, N::kWd, N::kWd, BF16>(
+              paired_layer<N::kWd, N::kWd, N::kWd>(
                   sw + N::off(1), sw + N::off(5), colS, colC, kT2, c);
 #pragma unroll
               for (int j = 0; j < N::kWd; ++j) {
@@ -352,10 +384,10 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
               }
             }
             float c4[4];
-            paired_layer<N::kWd, N::kWd, 4, BF16>(
+            paired_layer<N::kWd, N::kWd, 4>(
                 sw + N::off(2), sw + N::off(6), colS, colC, kT2, c4);
             float h4[16];
-            last<N::kWd, 16, 16, BF16>(sw + N::off(3), colS, kT2, h4);
+            last<N::kWd, 16, 16>(sw + N::off(3), colS, kT2, h4);
             sigma = expf(fminf(fmaxf(h4[0], -15.f), 15.f));
             cr = sigmoidf(c4[0]);
             cg = sigmoidf(c4[1]);
@@ -366,8 +398,8 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
 #pragma unroll
             for (int i = 0; i < 15; ++i) colC[(16 + i) * kT2] = h4[1 + i];
           } else {
-            field_point<BF16>(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr,
-                              cg, cb);
+            field_point(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
+                        cb);
           }
 
           // transmittance composite with the carried optical depth
@@ -421,13 +453,19 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
       if (pending) {
         // drain: the last pending sample's color chain, closing the last
         // executed segment's rgb sums
-        hidden<31, N::kWd, BF16>(sw + N::off(4), colC, colS, kT2);
-        hidden<N::kWd, N::kWd, BF16>(sw + N::off(5), colS, colC, kT2);
         float c3[3];
-        last<N::kWd, 4, 3, BF16>(sw + N::off(6), colC, kT2, c3);
-        pr = pr + w_prev * sigmoidf(c3[0]);
-        pg = pg + w_prev * sigmoidf(c3[1]);
-        pb = pb + w_prev * sigmoidf(c3[2]);
+        if constexpr (BF16) {
+          mma_color_drain<N>(swm, wtile, head_prev, c3[0], c3[1], c3[2]);
+        } else {
+          hidden<31, N::kWd>(sw + N::off(4), colC, colS, kT2);
+          hidden<N::kWd, N::kWd>(sw + N::off(5), colS, colC, kT2);
+          last<N::kWd, 4, 3>(sw + N::off(6), colC, kT2, c3);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) c3[i] = sigmoidf(c3[i]);
+        }
+        pr = pr + w_prev * c3[0];
+        pg = pg + w_prev * c3[1];
+        pb = pb + w_prev * c3[2];
         acc_r += pr;
         acc_g += pg;
         acc_b += pb;
@@ -444,6 +482,14 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   }
 }
 
+// The dynamic shared memory of one launch at window Wn: the MLP's, and in
+// the bending modes the candidate window.
+template <bool BF16, bool DEFORMED, class N>
+size_t launch_smem(int Wn) {
+  return mlp_bytes<BF16, N>() +
+         (DEFORMED ? (size_t)Wn * 16 * sizeof(float) : 0);
+}
+
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
           class N>
 cudaError_t launch(const float* tile_sc, const int* bin_start,
@@ -452,9 +498,7 @@ cudaError_t launch(const float* tile_sc, const int* bin_start,
                    int K, int Ks, int Ksb, int Wn, int num_seek, float bound,
                    cudaStream_t stream) {
   auto kern = render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N>;
-  // the candidate window exists only in the bending modes
-  const size_t smem = mlp_smem_bytes<N>(kT2) +
-                      (DEFORMED ? (size_t)Wn * 16 * sizeof(float) : 0);
+  const size_t smem = launch_smem<BF16, DEFORMED, N>(Wn);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -468,9 +512,25 @@ cudaError_t launch(const float* tile_sc, const int* bin_start,
   return cudaGetLastError();
 }
 
+// One instantiation's resident blocks per SM at the dynamic shared memory
+// its launch asks for at window Wn (both written; nothing runs).
+template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
+          class N>
+cudaError_t occupancy(int Wn, int* resident, int* smem_bytes) {
+  auto kern = render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N>;
+  const size_t smem = launch_smem<BF16, DEFORMED, N>(Wn);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = (int)smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kern, kT2,
+                                                       smem);
+}
+
 using LaunchFn = cudaError_t (*)(const float*, const int*, const float*,
                                  const float*, const float*, const float*,
                                  float*, int, int, int, int, int, int, int,
                                  int, int, float, cudaStream_t);
+using OccupancyFn = cudaError_t (*)(int, int*, int*);
 
 }  // namespace pienerf

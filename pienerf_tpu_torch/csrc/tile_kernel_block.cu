@@ -21,6 +21,19 @@ constexpr LaunchFn kLaunchBlock[2][2][3] = {
      {launch<true, true, false, false, true, Net128>,
       launch<true, false, false, false, true, Net128>,
       launch<true, true, true, false, true, Net128>}}};
+constexpr OccupancyFn kOccupancyBlock[2][2][3] = {
+    {{occupancy<false, true, false, false, true, Net64>,
+      occupancy<false, false, false, false, true, Net64>,
+      occupancy<false, true, true, false, true, Net64>},
+     {occupancy<true, true, false, false, true, Net64>,
+      occupancy<true, false, false, false, true, Net64>,
+      occupancy<true, true, true, false, true, Net64>}},
+    {{occupancy<false, true, false, false, true, Net128>,
+      occupancy<false, false, false, false, true, Net128>,
+      occupancy<false, true, true, false, true, Net128>},
+     {occupancy<true, true, false, false, true, Net128>,
+      occupancy<true, false, false, false, true, Net128>,
+      occupancy<true, true, true, false, true, Net128>}}};
 
 }  // namespace pienerf
 
@@ -45,6 +58,18 @@ extern "C" int pienerf_render_tiles_block(const void* tile_sc, const void* bin_s
       static_cast<float*>(out), A, block_tiles, BS, P, K, Ks, Ksb, Wn,
       num_seek, bound, static_cast<cudaStream_t>(stream));
   return (int)err;
+}
+
+// The resident blocks per SM of one instantiation and the dynamic shared
+// memory its launch asks for at window Wn (both written; nothing runs).
+extern "C" int pienerf_render_tiles_block_occupancy(int bf16, int deformed,
+                                                    int cut, int wd, int Wn,
+                                                    int* blocks,
+                                                    int* smem_bytes) {
+  if (wd != 64 && wd != 128) return (int)cudaErrorInvalidValue;
+  const int mode = !deformed ? 1 : (cut ? 2 : 0);
+  return (int)pienerf::kOccupancyBlock[wd == 128][bf16 ? 1 : 0][mode](
+      Wn, blocks, smem_bytes);
 }
 
 extern "C" const char* pienerf_error_string(int code) {

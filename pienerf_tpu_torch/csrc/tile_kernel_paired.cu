@@ -22,6 +22,19 @@ constexpr LaunchFn kLaunchPaired[2][2][3] = {
      {launch<true, true, false, true, true, Net64>,
       launch<true, false, false, true, true, Net64>,
       launch<true, true, true, true, true, Net64>}}};
+constexpr OccupancyFn kOccupancyPaired[2][2][3] = {
+    {{occupancy<false, true, false, true, false, Net64>,
+      occupancy<false, false, false, true, false, Net64>,
+      occupancy<false, true, true, true, false, Net64>},
+     {occupancy<true, true, false, true, false, Net64>,
+      occupancy<true, false, false, true, false, Net64>,
+      occupancy<true, true, true, true, false, Net64>}},
+    {{occupancy<false, true, false, true, true, Net64>,
+      occupancy<false, false, false, true, true, Net64>,
+      occupancy<false, true, true, true, true, Net64>},
+     {occupancy<true, true, false, true, true, Net64>,
+      occupancy<true, false, false, true, true, Net64>,
+      occupancy<true, true, true, true, true, Net64>}}};
 
 }  // namespace pienerf
 
@@ -42,6 +55,19 @@ extern "C" int pienerf_render_tiles_paired(
       static_cast<float*>(out), A, block_tiles, BS, P, K, Ks, Ksb, Wn,
       num_seek, bound, static_cast<cudaStream_t>(stream));
   return (int)err;
+}
+
+// The resident blocks per SM of one instantiation and the dynamic shared
+// memory its launch asks for at window Wn (both written; nothing runs).
+extern "C" int pienerf_render_tiles_paired_occupancy(int block_tiles, int bf16,
+                                                     int deformed, int cut,
+                                                     int wd, int Wn,
+                                                     int* blocks,
+                                                     int* smem_bytes) {
+  if (wd != 64) return (int)cudaErrorInvalidValue;
+  const int mode = !deformed ? 1 : (cut ? 2 : 0);
+  return (int)pienerf::kOccupancyPaired[block_tiles > 1][bf16 ? 1 : 0][mode](
+      Wn, blocks, smem_bytes);
 }
 
 extern "C" const char* pienerf_error_string(int code) {

@@ -5,7 +5,9 @@ Port of ``pienerf_tpu.ops.pallas.field_kernel`` at both kernel widths (the
 classic 64-wide net and the distilled 128-wide student; ``KERNEL_NETS``).
 ``field_eval`` launches the kernel for CUDA tensors and takes
 ``field_eval_plain`` only for CPU tensors; it never falls back from the card
-to the plain version.
+to the plain version. With ``compute_dtype="bfloat16"`` the kernel runs the
+MLP on the tensor cores (``csrc/mma_mlp.cuh``), with f32 on the CUDA cores;
+the plain version rounds as both do.
 """
 
 from __future__ import annotations
@@ -202,7 +204,8 @@ def field_eval(packed_w: torch.Tensor, spec: NetworkSpec, x, d
     tensors or [3, N]. Returns (sigma [N], rgb [3, N]) f32.
 
     CPU tensors take field_eval_plain; CUDA tensors launch the kernel at
-    the pack's width and count the launch in ``field_eval.launches[Wd]``."""
+    the pack's width and count the launch in
+    ``field_eval.launches[(Wd, compute_dtype)]``."""
     x = _stack(x)
     if x.device.type == "cpu":
         return field_eval_plain(packed_w, spec, x, d)
@@ -223,14 +226,16 @@ def field_eval(packed_w: torch.Tensor, spec: NetworkSpec, x, d
             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        bf16 = spec.compute_dtype == "bfloat16"
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), d.data_ptr(), packed_w.data_ptr(),
                 out.data_ptr(), n, float(spec.bound),
-                int(spec.compute_dtype == "bfloat16"), wd, n_sm, stream)
+                int(bf16), wd, n_sm, stream)
         _build.check(lib, rc, "field_eval")
-        field_eval.launches[wd] += 1
+        field_eval.launches[(wd, "bfloat16" if bf16 else "float32")] += 1
     return out[0], out[1:4]
 
 
-field_eval.launches = dict.fromkeys(WIDTHS, 0)
+field_eval.launches = {(w, t): 0 for w in WIDTHS
+                       for t in ("float32", "bfloat16")}

@@ -12,7 +12,8 @@ the previous sample's color chain, rgb composites one segment late) and
 ``block_tiles`` = B > 1 (one thread block renders B consecutive tiles).
 Both give the default schedule's output bit for bit. ``render_tiles``
 launches the kernel for CUDA tensors and takes ``render_tiles_plain`` only
-for CPU tensors.
+for CPU tensors. Every bf16 instantiation runs the field MLP on the tensor
+cores (``csrc/mma_mlp.cuh``), every f32 one on the CUDA cores.
 """
 
 from __future__ import annotations
