@@ -32,9 +32,15 @@ The bf16 instantiations of both kernels run the field MLP on the tensor
 cores, the f32 ones on the CUDA cores: the build phase reports every
 instantiation's registers, spills and resident blocks per SM, and
 field_mlp_bf16 times the tensor-core MLP alone (the field kernel at
-N = 2^20) against its bound. The kernels line gives each kernel's time
-before the tensor-core MLP (``pr4_ms``: commit 35c7b8a, whose bf16 MLP ran
-as FMA chains) beside its own.
+N = 2^20) against its bound. The kernels line holds only this run's
+readings; the prior_ms line just before it gives each kernel's time before
+the tensor-core MLP (``pr4_ms``: commit 35c7b8a, whose bf16 MLP ran as FMA
+chains), and for the kernels redesigned since commit ba2b58d (the
+register-blocked f32 field kernel, the tensor-core one-hot fetch) that
+commit's time too (``pr5_ms``). field_kernel_embedded holds the
+f32 field kernel at Wd 128 on the embedded checkpoint bit for bit to Wd 64;
+big_sim holds bf16 operator storage to the JAX package's own reading and
+runs a 200-step drag under it.
 
     python3 chip_smoke.py
 
@@ -111,6 +117,24 @@ PRIOR_MS = {"field_kernel": 1.565, "field_kernel_w128": 5.818,
           "take_fetch": 0.01419, "dynslice_fetch": 0.5080,
           "floor_shell": 0.01993}
 PRIOR_FIELD_BF16_MS = {64: 1.597, 128: 6.064}
+# the times at commit ba2b58d (chip_smoke.py on an H100 80GB HBM3 at
+# 700 W) of the kernels redesigned since: the f32 field kernel at both
+# widths (per-point FMA chains, now register-blocked) and the one-hot fetch
+# (an f32 FMA loop, now on the tensor cores)
+PR5_MS = {"field_kernel": 1.547, "field_kernel_w128": 5.776,
+          "onehot_fetch": 4.770}
+# bf16 storage of the sim operator moves one step of the 8,144-IP big_sim
+# scene by about 5% of the state's scale, and that is the reference's own
+# behaviour: from the same state after the same 20-step drag, JAX's
+# cast_B_bf16 step reads 0.05247 on the CPU and the port's 0.05249
+# (tests/test_torch_bigsim.py, its "chip" case, which is this scene). The
+# card's f32 trajectory parts from the CPU's by about 4e-5 of the scale
+# over those 20 steps, so its reading should match JAX's within a few
+# percent: the check allows 15% either way, and a reading outside means the
+# port's bf16 path no longer does what JAX's does.
+BF16_STEP_REL_JAX = 0.05247
+BF16_STEP_REL_TOL = 0.15
+LONG_DRAG_STEPS = 200             # the bf16 long drag, read every 50 steps
 # the trex proxy's cut box (tools/trex_proxy.py:42) and the resolution of
 # the cut-mode fidelity frame
 CUT_BOUNDS = [-0.30, 0.75, -0.75, 0.60, -0.45, 0.75]
@@ -592,6 +616,23 @@ def main() -> None:
         64: field_check("field_kernel", fk, pw, (spec32, spec16), rng),
         128: field_check("field_kernel_w128", fk, pw_fill,
                          (spec32_w, spec16_w), rng)}
+    # the checkpoint embedded in the 128-wide net: every f32 output is the
+    # same FMA chain with exact zeros added, so Wd 128 equals Wd 64
+    n_emb, rng_e = 1 << 20, np.random.RandomState(1)
+    x_emb = torch.as_tensor(rng_e.uniform(-1, 1, (3, n_emb)).astype(
+        np.float32), device=dev)
+    d_emb = torch.as_tensor(rng_e.randn(3, n_emb).astype(np.float32),
+                            device=dev)
+    d_emb = (d_emb / d_emb.norm(dim=0, keepdim=True)).contiguous()
+    e64 = fk.field_eval(pw, spec32, x_emb, d_emb)
+    e128 = fk.field_eval(pw_w, spec32_w, x_emb, d_emb)
+    torch.cuda.synchronize()
+    emb_equal = bool(torch.equal(e64[0], e128[0])
+                     and torch.equal(e64[1], e128[1]))
+    emit("field_kernel_embedded", n=n_emb, equal=emb_equal,
+         max_abs_diff=max(float((e64[0] - e128[0]).abs().max()),
+                          float((e64[1] - e128[1]).abs().max())))
+    assert emb_equal
 
     # ---- the bf16 MLP alone on the tensor cores: the field kernel at
     # N = 2^20, both widths, against its operation bound
@@ -1240,10 +1281,18 @@ def main() -> None:
             bound_ms=fetch_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
             library_ms=probe[f"C_index_select_T{PROBE_T}"]["ms_per_call"])
         assert fetch_rows[n]["equal"], n
+    # the one-hot arm's own mechanism: three bf16 parts of the table, each
+    # a dense [B, T] . [T, 128] product on the tensor cores
+    oh_ms = fetch_rows["onehot"]["ms"]
+    oh_bound = 3 * 2.0 * PROBE_ROWS * PROBE_T * pk.ROW / PEAK_BF16 * 1e3
+    onehot_ops = dict(ops_bound_ms=oh_bound, ops_bound_by="operations",
+                      share_of_bf16_peak=oh_bound / oh_ms,
+                      vs_library=oh_ms / fetch_rows["onehot"]["library_ms"])
     probe_bounds = {
         T: (u * pk.ROW * 4 + PROBE_ROWS * 4 + PROBE_ROWS * pk.ROW * 4)
         / PEAK_BYTES * 1e3 for T, u in probe.pop("unique_rows").items()}
     emit("gather_probe", rows=PROBE_ROWS, row_bytes=pk.ROW * 4, arms=probe,
+         onehot_T8192=onehot_ops,
          bound_ms_by_table=probe_bounds,
          bound_g_rows_per_s_read_only=PEAK_BYTES / (pk.ROW * 4) / 1e9,
          bound_g_rows_per_s_read_write=PEAK_BYTES / (2 * pk.ROW * 4) / 1e9,
@@ -1364,6 +1413,21 @@ def main() -> None:
     st_bf = sim.sim_step(consts_bf, st_c)
     bf16_err = float((st_bf.ddof - sim.sim_step(consts_b, st_c).ddof).abs()
                      .max() / st_c.ddof.abs().max())
+    # the long drag: LONG_DRAG_STEPS spring steps from rest under bf16
+    # storage beside the f32 trajectory, each dragged by its own spring
+    st32, st16, drift = rest_b, rest_b, []
+    t0 = time.perf_counter()
+    for fi in range(LONG_DRAG_STEPS):
+        st32 = sim.sim_step(consts_b, sim.update_force(
+            consts_b, st32, vid_b, spring_b(st32, fi)))
+        st16 = sim.sim_step(consts_bf, sim.update_force(
+            consts_bf, st16, vid_b, spring_b(st16, fi)))
+        if (fi + 1) % 50 == 0:
+            assert bool(torch.isfinite(st16.ddof).all()), fi
+            drift.append(float((st16.ddof - st32.ddof).abs().max()
+                               / st32.ddof.abs().max()))
+    long_drag = dict(steps=LONG_DRAG_STEPS, every=50, drift_rel=drift,
+                     finite=True, seconds=time.perf_counter() - t0)
     # one coupled frame on it, through the tile kernel
     ist_big = ist._replace(bend=bst._replace(ip_dx=1.05 * dx_big))
     reset_counts()
@@ -1385,12 +1449,16 @@ def main() -> None:
          deterministic=True, dense_vs_chunked_rel=dense_err, limit=2e-5,
          ms_per_step_chunked=ms_chunked, ms_per_step_dense=ms_dense,
          ms_per_step_bf16=ms_bf16, bf16_step_rel=bf16_err,
+         bf16_step_rel_jax=BF16_STEP_REL_JAX,
+         bf16_step_rel_tol=BF16_STEP_REL_TOL, long_drag=long_drag,
          frame=dict(n_active=int(out_big["n_active"]),
                     dropped_beam=int(out_big["dropped_beam"]),
                     dropped_window=int(out_big["dropped_window"]),
                     ms=big_frame_ms), launches=big_launches)
     assert dense_err <= 2e-5, dense_err
     assert pin_move <= 1e-2 < free_move, (pin_move, free_move)
+    assert abs(bf16_err / BF16_STEP_REL_JAX - 1.0) <= BF16_STEP_REL_TOL, \
+        bf16_err
     assert bool(torch.isfinite(out_big["tiles_image"]).all())
     assert int(out_big["n_active"]) > 0
     assert big_launches == only(tile_deformed_w64=1), big_launches
@@ -1465,8 +1533,8 @@ def main() -> None:
     # cache pass and the cut frames), at each width
     def row(name, source, replaces, launches, reading, **extra):
         """One entry of the kernels line; ``library_ms`` only where one
-        PyTorch call computes the same function; ``pr4_ms`` the kernel's
-        time at commit 35c7b8a (PRIOR_MS)."""
+        PyTorch call computes the same function. Every number is this
+        run's; the earlier commits' times are on the prior_ms line."""
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": reading.get("max_abs_err",
@@ -1475,7 +1543,7 @@ def main() -> None:
                 "bound_ms": reading["bound_ms"],
                 "bound_by": reading.get("bound_by", "operations"),
                 "library_ms": reading.get("library_ms"),
-                "pr4_ms": PRIOR_MS[name], **extra}
+                **extra}
 
     def bf16_field(wd):
         """The field rows' bf16 reading (the rows themselves are f32) and
@@ -1483,8 +1551,7 @@ def main() -> None:
         r = field_rows[wd]["bfloat16"]
         return dict(bf16_launches=newton16_launches[wd], bf16_ms=r["ms"],
                     bf16_max_abs_err=r["rgb_max_abs"],
-                    bf16_bound_ms=r["bound_ms"],
-                    bf16_pr4_ms=PRIOR_FIELD_BF16_MS[wd])
+                    bf16_bound_ms=r["bound_ms"])
 
     fsrc = ("pienerf_tpu_torch/csrc/field_kernel.cu",
             "pienerf_tpu/ops/pallas/field_kernel.py:134")
@@ -1525,13 +1592,18 @@ def main() -> None:
     ] + [
         row(f"{n}_fetch", psrc,
             f"tools/pallas_gather_probe.py:{probe_lines[n]}",
-            probe_launches[f"fetch_{n}"], fetch_rows[n])
+            probe_launches[f"fetch_{n}"], fetch_rows[n],
+            **(onehot_ops if n == "onehot" else {}))
         for n in pk.FETCHES
     ] + [
         row("floor_shell", psrc, "tools/micro_floor.py:56",
             floor_launches["floor_shell"], shell_row),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
+    # the earlier commits' times, constants of this file and not this
+    # run's readings, on their own line beside the kernels line
+    emit("prior_ms", pr4_ms=PRIOR_MS, pr4_field_bf16_ms=PRIOR_FIELD_BF16_MS,
+         pr5_ms=PR5_MS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

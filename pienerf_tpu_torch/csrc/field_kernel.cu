@@ -16,12 +16,14 @@
 // shared memory); nothing but x, d and the 16 B result touches device
 // memory. The grid is sized to the resident blocks of the card and walks
 // the points in a grid-stride loop; a ragged N is masked in the loop.
-//   f32, Wd 64: one thread per point; the 75 KB of weights are staged once
-//     per resident block and broadcast to the warp (see field_mlp.cuh).
-//   f32, Wd 128: 128 points per pass of the 256-thread block, two threads
-//     per point, one layer's weights staged at a time (field_points_wide);
-//     the owner threads (the first 128) load the points and store the
-//     results.
+//   f32, either width (field_eval_f32_kernel, field_f32.cuh): the block's
+//     512 threads evaluate 512 (Wd 64) or 256 (Wd 128) points a pass, one
+//     layer at a time as a register-blocked SGEMM on the CUDA cores (a
+//     thread owns 64 outputs of a hidden layer: 4 points x 16, or 8 x 8);
+//     the activations sit in shared memory as [feature][point], each layer
+//     overwriting its input. Net64's weights stay resident; Net128's stream
+//     through a cp.async double buffer. Every output is the FMA chain of
+//     field_mlp.cuh's f32 path, bit for bit.
 //   bf16, either width (field_eval_mma_kernel): every layer's bf16 weights
 //     staged once per block; each warp takes 32 consecutive points a pass,
 //     one a lane, through mma_field. The loop runs over whole warps, so the
@@ -30,73 +32,38 @@
 
 #include <type_traits>
 
-#include "field_mlp.cuh"
+#include "field_f32.cuh"
 
 namespace pienerf {
 
-constexpr int kFieldThreads = 256;
+constexpr int kFieldThreads = 256;     // the bf16 kernel's block
 
-__global__ void __launch_bounds__(kFieldThreads)
-field_eval_kernel(const float* __restrict__ x, const float* __restrict__ d,
-                  const float* __restrict__ pw, float* __restrict__ out,
-                  int n, float bound) {
-  using N = Net64;
+template <class N>
+__global__ void __launch_bounds__(kF32Threads, 1)
+field_eval_f32_kernel(const float* __restrict__ x,
+                      const float* __restrict__ d,
+                      const float* __restrict__ pw, float* __restrict__ out,
+                      int n, float bound) {
+  constexpr int P = f32_points<N>();
   extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  float* buf = sw + N::wfloats();
-  stage_weights<N>(sw, pw);
-  __syncthreads();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float sh[16];
-    sh4<false>(d[i], d[n + i], d[2 * n + i], sh);
-    float sigma, r, g, b;
-    field_point(sw, buf, x[i], x[n + i], x[2 * n + i], bound, sh, sigma, r,
-                g, b);
-    out[i] = sigma;
-    out[n + i] = r;
-    out[2 * n + i] = g;
-    out[3 * n + i] = b;
-  }
-}
-
-__global__ void __launch_bounds__(kFieldThreads)
-field_eval_wide_kernel(const float* __restrict__ x,
-                       const float* __restrict__ d,
-                       const float* __restrict__ pw, float* __restrict__ out,
-                       int n, float bound) {
-  using N = Net128;
-  constexpr int S = kWidePoints;
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  float* A = sw + N::kWd * N::kWd;
-  float* B = A + N::kWd * S;
-  const bool owner = threadIdx.x < S;
-  const int n_pass = (n + S - 1) / S;
-  // block-uniform loop: field_points_wide synchronises the block
-  for (int c = blockIdx.x; c < n_pass; c += gridDim.x) {
-    const int i = c * S + (threadIdx.x & (S - 1));
-    const bool live = owner && i < n;
-    float x0 = 0.f, x1 = 0.f, x2 = 0.f, d0 = 0.f, d1 = 0.f, d2 = 1.f;
-    if (live) {
-      x0 = x[i];
-      x1 = x[n + i];
-      x2 = x[2 * n + i];
-      d0 = d[i];
-      d1 = d[n + i];
-      d2 = d[2 * n + i];
+  float* s = reinterpret_cast<float*>(smem4);
+  // block-uniform loop: every pass synchronises the block
+  if constexpr (N::kWd == 64) {
+    float* A = s + N::wfloats();
+    F32Resident<N> w{s};
+    stage_weights<N>(s, pw);
+    __syncthreads();
+    for (int base = blockIdx.x * P; base < n; base += gridDim.x * P) {
+      f32_pass<N>(w, A, x, d, out, n, base, bound);
     }
-    float sh[16];
-    sh4<false>(d0, d1, d2, sh);
-    float sigma = 0.f, r = 0.f, g = 0.f, b = 0.f;
-    field_points_wide<N>(sw, A, B, pw, owner, x0, x1, x2, bound, sh, sigma,
-                         r, g, b);
-    if (live) {
-      out[i] = sigma;
-      out[n + i] = r;
-      out[2 * n + i] = g;
-      out[3 * n + i] = b;
+  } else {
+    float* A = s + 2 * kChunkFloats;
+    F32Streamed<N> w{pw, s, 0};
+    w.first();
+    for (int base = blockIdx.x * P; base < n; base += gridDim.x * P) {
+      f32_pass<N>(w, A, x, d, out, n, base, bound);
     }
+    w.last();
   }
 }
 
@@ -149,16 +116,15 @@ field_eval_mma_kernel(const float* __restrict__ x,
 template <bool BF16, bool WIDE>
 cudaError_t occupancy(int* resident, int* smem_bytes) {
   using N = typename std::conditional<WIDE, Net128, Net64>::type;
-  auto kern = BF16 ? field_eval_mma_kernel<N>
-                   : (WIDE ? field_eval_wide_kernel : field_eval_kernel);
-  const size_t smem = BF16 ? mma_smem_bytes<N>(kFieldThreads)
-                           : mlp_smem_bytes<N>(kFieldThreads);
+  auto kern = BF16 ? field_eval_mma_kernel<N> : field_eval_f32_kernel<N>;
+  const size_t smem =
+      BF16 ? mma_smem_bytes<N>(kFieldThreads) : f32_smem_bytes<N>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   *smem_bytes = (int)smem;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kern,
-                                                       kFieldThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      resident, kern, BF16 ? kFieldThreads : kF32Threads, smem);
 }
 
 template <bool BF16, bool WIDE>
@@ -166,10 +132,9 @@ cudaError_t launch(const float* x, const float* d, const float* pw,
                    float* out, int n, float bound, int n_sm,
                    cudaStream_t stream) {
   using N = typename std::conditional<WIDE, Net128, Net64>::type;
-  auto kern = BF16 ? field_eval_mma_kernel<N>
-                   : (WIDE ? field_eval_wide_kernel : field_eval_kernel);
+  auto kern = BF16 ? field_eval_mma_kernel<N> : field_eval_f32_kernel<N>;
   // points one block covers per pass of its loop
-  const int per_block = WIDE && !BF16 ? kWidePoints : kFieldThreads;
+  const int per_block = BF16 ? kFieldThreads : f32_points<N>();
   int per_sm = 0, smem = 0;
   cudaError_t err = occupancy<BF16, WIDE>(&per_sm, &smem);
   if (err != cudaSuccess) return err;
@@ -178,7 +143,8 @@ cudaError_t launch(const float* x, const float* d, const float* pw,
   long long grid = (long long)per_sm * n_sm;
   if (need < grid) grid = need;
   if (grid < 1) grid = 1;
-  kern<<<(int)grid, kFieldThreads, smem, stream>>>(x, d, pw, out, n, bound);
+  const int threads = BF16 ? kFieldThreads : kF32Threads;
+  kern<<<(int)grid, threads, smem, stream>>>(x, d, pw, out, n, bound);
   return cudaGetLastError();
 }
 

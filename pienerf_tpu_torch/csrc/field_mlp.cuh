@@ -38,7 +38,9 @@
 // runs a sigma layer beside a color layer per pass over the inputs
 // (paired_layer).
 //
-// All of the above is the f32 path, on the CUDA cores. The bf16
+// All of the above is the tile kernel's f32 path, on the CUDA cores; the
+// field kernel's f32 path runs the same chains register-blocked over a
+// block of points (field_f32.cuh), bit for bit. The bf16
 // instantiations of both kernels run the same net on the tensor cores
 // instead, one warp's 32 samples at a time (mma_mlp.cuh, included at the
 // end of this file).

@@ -28,8 +28,8 @@
 // within a layer differs: each output's sum runs over the k16 tiles in
 // increasing order, each tile's 16 products added to the running f32 sum
 // by the tensor core in an order of its own (the CPU emulation of
-// mma_bf16_16816, tests/test_torch_cuda_emu.py, adds them one by one in
-// increasing k). Every MMA runs on all 32 lanes, converged (`.aligned`):
+// mma.cuh's mma_bf16_16816, tests/test_torch_cuda_emu.py, adds them one
+// by one in increasing k). Every MMA runs on all 32 lanes, converged (`.aligned`):
 // the callers reach these functions warp-uniformly, and each starts with a
 // __syncwarp.
 //
@@ -44,28 +44,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace pienerf {
+#include "mma.cuh"
 
-// d = a . b + c for one 16x8 tile, k = 16: the only use of the tensor-core
-// instruction (fragments as the PTX ISA lays out m16n8k16 .bf16: lane
-// l = 4 g + t holds A rows g, g + 8 at columns 2t, 2t + 1, 2t + 8, 2t + 9;
-// B column g at rows 2t, 2t + 1, 2t + 8, 2t + 9; C rows g, g + 8 at
-// columns 2t, 2t + 1).
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2],
-                                               const float (&c)[4]) {
-#ifdef PIENERF_EMU_MMA
-  emu_mma_bf16_16816(d, a, b, c);
-#else
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-#endif
-}
+namespace pienerf {
 
 // two floats rounded to bf16, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

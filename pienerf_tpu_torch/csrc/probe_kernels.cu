@@ -8,11 +8,12 @@
 //   out[b, :] = table[idx[b], :],  table [T, 128] f32, idx [B] i32,
 // exactly (an index outside [0, T) gives a row of zeros). Each is the
 // mechanism of this card that answers the question its TPU twin asked:
-//   onehot   a block of 512 indices streams the whole table through shared
-//            memory in chunks and accumulates (idx[b] == row) * table[row]
-//            with f32 FMAs: the exact one-hot product (the reference's
-//            Precision.HIGHEST point; no tensor-core truncation). Bound by
-//            operations: T x 128 MACs per fetched row.
+//   onehot   the dense one-hot product on the tensor cores, as the TPU
+//            probe runs it on its MXU at Precision.HIGHEST: out = A . table
+//            with A[b][row] = (idx[b] == row), every row of the table
+//            multiplied (mma.sync m16n8k16, bf16 in, f32 accumulators; see
+//            the onehot section). Bound by operations: 3 x T x 128 MACs per
+//            fetched row at the bf16 rate.
 //   dma      per-row asynchronous copies device memory -> shared memory,
 //            8 in flight in a ring per block, then out. The copies are
 //            `cp.async` (16 bytes per lane, one warp per 512-byte row, one
@@ -41,65 +42,206 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace pienerf {
 
 constexpr int kRow = 128;          // floats per table row (512 bytes)
-constexpr int kFetchBlock = 512;   // indices per block (onehot, dma, dynslice)
+constexpr int kFetchBlock = 512;   // B is a multiple (dma, dynslice: a block)
 constexpr int kDepth = 8;          // dma: copies in flight per block
 
 // ---- onehot -------------------------------------------------------------
-constexpr int kOhCols = 32;        // columns a thread accumulates per pass
-constexpr int kOhRows = 256;       // table rows per shared-memory chunk
+// The table is split into three bf16 parts, x = hi + mid + lo: hi keeps the
+// top 8 significant bits of x (its bf16 pattern, truncated, so FLT_MAX
+// cannot round to inf), mid the next 8 of x - hi, lo the rest of x - hi -
+// mid. Each difference is exact in f32, so the three carry x's 24-bit
+// significand exactly for every finite x whose bits lie at or above 2^-133
+// (every x with |x| >= 2^-110, and every smaller one on bf16's grid); bf16
+// has no bits below. onehot_split_kernel writes them once per call, in
+// B-fragment order. The fetch kernel multiplies the one-hot A, built in
+// registers from each lane's indices (exact in bf16), by all three parts of
+// every k16 tile of the table, into three separate f32 accumulator sets:
+// exactly one product in each output's sum is nonzero, so each
+// accumulator is exact (never let the tensor core add the parts together:
+// its internal alignment is not IEEE round-to-nearest). The output is
+// (acc_hi + acc_mid) + acc_lo in f32: both adds are exact, so it is
+// table[idx] bit for bit except the sign of zero (-0.0 reads +0.0: the
+// accumulators start at +0 and the zero products of the other rows are
+// added in); an index outside [0, T) hits no row and reads 0.
+//
+// Block: 256 fetches, 8 warps, in four passes of 32 columns. Warp w owns
+// 4 m16 tiles of fetches (rows 64 (w / 2) ..) x 2 n8 tiles of the pass's
+// columns (16 (w % 2) ..): each B fragment, loaded once from shared memory,
+// feeds 4 MMAs (4 m16 tiles), and each A fragment 6 (2 n8 tiles x 3
+// parts); 96 accumulators a lane. The parts stream through two
+// shared-memory buffers of kOhKc k16 tiles (48 KB each) by cp.async, the
+// next chunk in flight while this one is multiplied.
+constexpr int kOhFetches = 256;    // fetches per block
+constexpr int kOhThreads = 256;
+constexpr int kOhMt = 4;           // m16 tiles a warp
+constexpr int kOhNs = 2;           // n8 tiles a warp
+constexpr int kOhPassCols = 32;    // columns per pass
+constexpr int kOhPasses = kRow / kOhPassCols;
+constexpr int kOhPassNt = kOhPassCols / 8;          // n8 tiles per pass
+constexpr int kOhKc = 16;          // k16 tiles per staged chunk
+// one k16 tile of one pass: 3 parts x 4 n8 tiles x 32 lanes of uint2
+constexpr int kOhTileU2 = 3 * kOhPassNt * 32;
+static_assert(kOhThreads / 32 == (kOhFetches / (16 * kOhMt)) *
+                                     (kOhPassNt / kOhNs), "warps tile a pass");
 
-__global__ void __launch_bounds__(kFetchBlock)
-onehot_fetch_kernel(const float* __restrict__ table,
+__device__ __forceinline__ uint32_t bits_top16(float v) {
+  return __float_as_uint(v) >> 16;
+}
+
+// parts [pass][k16 tile][part][n8 tile of the pass][lane] uint2: lane
+// 4 g + t holds rows 2t, 2t + 1 (x) and 2t + 8, 2t + 9 (y) of column g of
+// the tile, lower row in the low half; rows at or past T are zero.
+__global__ void __launch_bounds__(256)
+onehot_split_kernel(const float* __restrict__ table, uint2* __restrict__ parts,
+                    int T, int KT) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;   // (kt, nt, lane)
+  if (e >= KT * (kRow / 8) * 32) return;
+  const int lane = e & 31, nt = (e >> 5) % (kRow / 8), kt = (e >> 5) / (kRow / 8);
+  const int g = lane >> 2, t = lane & 3;
+  const int col = nt * 8 + g;
+  uint32_t p[3][4];                        // part, row 2t, 2t + 1, 2t + 8, +9
+  const int rows[4] = {2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = kt * 16 + rows[i];
+    const float x = r < T ? table[(size_t)r * kRow + col] : 0.f;
+    const float hi = __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+    const float r1 = x - hi;
+    const float mid = __uint_as_float(__float_as_uint(r1) & 0xffff0000u);
+    p[0][i] = bits_top16(hi);
+    p[1][i] = bits_top16(mid);
+    p[2][i] = bits_top16(r1 - mid);
+  }
+  const int pass = nt / kOhPassNt, nl = nt % kOhPassNt;
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    parts[(((size_t)pass * KT + kt) * 3 + part) * kOhPassNt * 32 + nl * 32 +
+          lane] = make_uint2(p[part][0] | (p[part][1] << 16),
+                             p[part][2] | (p[part][3] << 16));
+  }
+}
+
+__global__ void __launch_bounds__(kOhThreads, 1)
+onehot_fetch_kernel(const uint2* __restrict__ parts,
                     const int* __restrict__ idx, float* __restrict__ out,
-                    int T) {
-  extern __shared__ float4 smem4[];     // [kOhRows * kOhCols / 4]
-  float4* chunk4 = smem4;
-  float* chunk = reinterpret_cast<float*>(chunk4);
-  const int t = threadIdx.x;
-  const int b = blockIdx.x * kFetchBlock + t;
-  const int row_b = idx[b];
-  // four passes over the table, 32 of the 128 columns each: 32 f32
-  // accumulators a thread, at 512 threads a block
-  for (int c0 = 0; c0 < kRow; c0 += kOhCols) {
-    float acc[kOhCols];
+                    int T, int KT) {
+  extern __shared__ float4 smem4[];       // 2 x [kOhKc][kOhTileU2] uint2
+  uint2* buf = reinterpret_cast<uint2*>(smem4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mg = warp / (kOhPassNt / kOhNs), ng = warp % (kOhPassNt / kOhNs);
+  const int b0 = blockIdx.x * kOhFetches + mg * 16 * kOhMt;
+  // per fetch row of this lane (rows g and g + 8 of each m16 tile): the k16
+  // tile it hits (-1: none) and its A words there (columns 2t, 2t + 1 and
+  // 2t + 8, 2t + 9; bf16 1.0 is 0x3f80)
+  int hit[kOhMt][2];
+  uint32_t wlo[kOhMt][2], whi[kOhMt][2];
 #pragma unroll
-    for (int j = 0; j < kOhCols; ++j) acc[j] = 0.f;
-    for (int r0 = 0; r0 < T; r0 += kOhRows) {
-      __syncthreads();                 // the previous chunk's readers
-      for (int e = t; e < kOhRows * kOhCols / 4; e += kFetchBlock) {
-        const int rr = e / (kOhCols / 4);
-        const int q = e - rr * (kOhCols / 4);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r0 + rr < T) {
-          v = *reinterpret_cast<const float4*>(
-              table + (size_t)(r0 + rr) * kRow + c0 + 4 * q);
-        }
-        chunk4[e] = v;
-      }
-      __syncthreads();
-      for (int rr = 0; rr < kOhRows; ++rr) {
-        const float m = (row_b == r0 + rr) ? 1.f : 0.f;
+  for (int m = 0; m < kOhMt; ++m) {
 #pragma unroll
-        for (int j = 0; j < kOhCols; j += 4) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(chunk + rr * kOhCols + j);
-          acc[j + 0] = __fmaf_rn(m, v.x, acc[j + 0]);
-          acc[j + 1] = __fmaf_rn(m, v.y, acc[j + 1]);
-          acc[j + 2] = __fmaf_rn(m, v.z, acc[j + 2]);
-          acc[j + 3] = __fmaf_rn(m, v.w, acc[j + 3]);
-        }
-      }
-    }
-    float* o = out + (size_t)b * kRow + c0;
-#pragma unroll
-    for (int j = 0; j < kOhCols; j += 4) {
-      *reinterpret_cast<float4*>(o + j) =
-          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+    for (int h = 0; h < 2; ++h) {
+      const int v = idx[b0 + 16 * m + g + 8 * h];
+      const bool ok = (unsigned)v < (unsigned)T;
+      const int k = v & 15;
+      hit[m][h] = ok ? v >> 4 : -1;
+      wlo[m][h] = k == 2 * t ? 0x3f80u : k == 2 * t + 1 ? 0x3f800000u : 0u;
+      whi[m][h] = k == 2 * t + 8 ? 0x3f80u
+                                 : k == 2 * t + 9 ? 0x3f800000u : 0u;
     }
   }
+  const int n_chunks = (KT + kOhKc - 1) / kOhKc;
+  // start chunk c of pass `pass` into slot; one commit group always
+  auto start = [&](int pass, int c, int slot) {
+    const int kt0 = c * kOhKc;
+    const int nkt = min(kOhKc, KT - kt0);
+    const uint2* src = parts + ((size_t)pass * KT + kt0) * kOhTileU2;
+    uint2* dst = buf + slot * kOhKc * kOhTileU2;
+    for (int e = threadIdx.x; e < nkt * kOhTileU2 / 2; e += kOhThreads) {
+      __pipeline_memcpy_async(dst + 2 * e, src + 2 * e, sizeof(uint4));
+    }
+    __pipeline_commit();
+  };
+  start(0, 0, 0);
+  int q = 0;                               // chunks started so far - 1
+#pragma unroll 1
+  for (int pass = 0; pass < kOhPasses; ++pass) {
+    float acc[3][kOhMt][kOhNs][4];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int m = 0; m < kOhMt; ++m)
+#pragma unroll
+        for (int n = 0; n < kOhNs; ++n)
+          acc[p][m][n][0] = acc[p][m][n][1] = acc[p][m][n][2] =
+              acc[p][m][n][3] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < n_chunks; ++c) {
+      // the next chunk (of this pass, or the next pass's first)
+      if (c + 1 < n_chunks) {
+        start(pass, c + 1, (q + 1) & 1);
+      } else if (pass + 1 < kOhPasses) {
+        start(pass + 1, 0, (q + 1) & 1);
+      } else {
+        __pipeline_commit();               // keep one group per chunk
+      }
+      __pipeline_wait_prior(1);            // this thread's copies of chunk q
+      __syncthreads();                     // everyone's
+      const uint2* cb = buf + (q & 1) * kOhKc * kOhTileU2;
+      const int kt0 = c * kOhKc;
+      const int nkt = min(kOhKc, KT - kt0);
+#pragma unroll 1
+      for (int kk = 0; kk < nkt; ++kk) {
+        const int kt = kt0 + kk;
+        uint32_t a[kOhMt][4];
+#pragma unroll
+        for (int m = 0; m < kOhMt; ++m) {
+          const bool h0 = hit[m][0] == kt, h1 = hit[m][1] == kt;
+          a[m][0] = h0 ? wlo[m][0] : 0u;
+          a[m][1] = h1 ? wlo[m][1] : 0u;
+          a[m][2] = h0 ? whi[m][0] : 0u;
+          a[m][3] = h1 ? whi[m][1] : 0u;
+        }
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+#pragma unroll
+          for (int n = 0; n < kOhNs; ++n) {
+            const uint2 bw =
+                cb[(kk * 3 + p) * kOhPassNt * 32 + (ng * kOhNs + n) * 32 + lane];
+            const uint32_t b[2] = {bw.x, bw.y};
+#pragma unroll
+            for (int m = 0; m < kOhMt; ++m) {
+              mma_bf16_16816(acc[p][m][n], a[m], b, acc[p][m][n]);
+            }
+          }
+        }
+      }
+      __syncthreads();                     // slot q & 1 free for chunk q + 2
+      ++q;
+    }
+    // rows g, g + 8 of each m16 tile, columns 2t, 2t + 1 of each n8 tile
+#pragma unroll
+    for (int m = 0; m < kOhMt; ++m) {
+#pragma unroll
+      for (int n = 0; n < kOhNs; ++n) {
+        const int col = pass * kOhPassCols + (ng * kOhNs + n) * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int b = b0 + 16 * m + g + 8 * h;
+          *reinterpret_cast<float2*>(out + (size_t)b * kRow + col) =
+              make_float2((acc[0][m][n][2 * h] + acc[1][m][n][2 * h]) +
+                              acc[2][m][n][2 * h],
+                          (acc[0][m][n][2 * h + 1] + acc[1][m][n][2 * h + 1]) +
+                              acc[2][m][n][2 * h + 1]);
+        }
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
 }
 
 // ---- dma ----------------------------------------------------------------
@@ -262,10 +404,11 @@ cudaError_t launch_shell(const float* tile_sc, const void* bin_start,
 }  // namespace pienerf
 
 // which: 0 onehot, 1 dma, 2 take, 3 dynslice. B must be a multiple of 512
-// for all but take. `n_sm` sizes take's grid.
+// for all but take. `n_sm` sizes take's grid. `scratch` holds onehot's
+// table parts (pienerf_onehot_scratch_bytes(T) bytes; unused otherwise).
 extern "C" int pienerf_fetch(int which, const void* table, const void* idx,
-                             void* out, int T, int B, int n_sm,
-                             void* stream) {
+                             void* out, void* scratch, int T, int B,
+                             int n_sm, void* stream) {
   using namespace pienerf;
   const float* tab = static_cast<const float*>(table);
   const int* ix = static_cast<const int*>(idx);
@@ -275,8 +418,19 @@ extern "C" int pienerf_fetch(int which, const void* table, const void* idx,
   if (which != 2 && B % kFetchBlock != 0) return (int)cudaErrorInvalidValue;
   const int grid = B / kFetchBlock;
   if (which == 0) {
-    const size_t smem = kOhRows * kOhCols * sizeof(float);
-    onehot_fetch_kernel<<<grid, kFetchBlock, smem, s>>>(tab, ix, o, T);
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    uint2* parts = static_cast<uint2*>(scratch);
+    const int KT = (T + 15) / 16;
+    const int n_split = KT * (kRow / 8) * 32;
+    onehot_split_kernel<<<(n_split + 255) / 256, 256, 0, s>>>(tab, parts, T,
+                                                              KT);
+    const size_t smem = 2 * kOhKc * kOhTileU2 * sizeof(uint2);
+    cudaError_t err = cudaFuncSetAttribute(
+        onehot_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    onehot_fetch_kernel<<<B / kOhFetches, kOhThreads, smem, s>>>(parts, ix, o,
+                                                                 T, KT);
   } else if (which == 1) {
     const size_t smem = kDepth * kRow * sizeof(float);
     dma_fetch_kernel<<<grid, 32, smem, s>>>(tab, ix, o, T);
@@ -292,6 +446,13 @@ extern "C" int pienerf_fetch(int which, const void* table, const void* idx,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Bytes of onehot's scratch for a table of T rows: three bf16 parts of
+// the table padded to whole k16 tiles.
+extern "C" long long pienerf_onehot_scratch_bytes(int T) {
+  using namespace pienerf;
+  return (long long)(T + 15) / 16 * kRow / 8 * 32 * 3 * sizeof(uint2);
 }
 
 // A null bin_start, dirs or cand leaves that input out; bs_int16 says that

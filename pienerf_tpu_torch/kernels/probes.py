@@ -44,25 +44,35 @@ def _fetch(which: str, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     check_arg(idx, "idx", torch.int32, (B,), dev)
     out = torch.empty((B, ROW), dtype=torch.float32, device=dev)
     lib = _build.library("probes")
+    scratch = None
+    if which == "onehot":          # the table's three bf16 parts
+        nbytes = lib.pienerf_onehot_scratch_bytes
+        nbytes.restype = ctypes.c_longlong
+        nbytes.argtypes = [ctypes.c_int]
+        scratch = torch.empty(nbytes(T), dtype=torch.uint8, device=dev)
     fn = lib.pienerf_fetch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
     rc = fn(FETCHES.index(which), table.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), T, B, n_sm, stream)
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            T, B, n_sm, stream)
     _build.check(lib, rc, f"{which}_fetch")
     FETCH_FNS[which].launches += 1
     return out
 
 
 def onehot_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows by the exact one-hot product: a block of 512 indices streams
-    the table through shared memory and accumulates (idx == row) * row in
-    f32. table [T, 128] f32, idx [B] int32 in [0, T) (an index outside
-    gives a zero row on the card)."""
+    """Rows by the dense one-hot product on the tensor cores: the table
+    split into three bf16 parts (a prologue kernel, every call), each
+    multiplied by the one-hot [B, T] into its own f32 accumulators, summed
+    last; exact for every finite table value on bf16's grid (every |x| >=
+    2^-110), bit for bit except that -0.0 reads +0.0. table [T, 128] f32,
+    idx [B] int32 in [0, T) (an index outside gives a zero row on the
+    card)."""
     return _fetch("onehot", table, idx)
 
 

@@ -1,7 +1,11 @@
 """Headless interactive physics demo on the card (port of main_gui.py).
 
-Loads the newest trained field ``{workspace}/checkpoints/ngp_ep*.npz``
-(``ema_params``; the mlp architecture is read from the weight shapes) and
+Loads a trained field as the reference's trainer picks it (``--ckpt latest``,
+the default: the newest ``{workspace}/checkpoints/ngp_ep*.npz``; ``--ckpt
+scratch``: a random field from ``--seed``; ``--ckpt <file>``: that
+``.npz``; ``--ckpt_path <file>`` wins over any ``--ckpt`` but ``latest``,
+which does not read it; its ``ema_params`` render, and a checkpoint whose
+``params`` are not finite is refused) and
 the annotated physics PLY ``assets/{exp_name}.ply``, builds the simulator,
 and runs the coupled sim + render loop, writing PNG frames:
 
@@ -30,9 +34,41 @@ import time
 import numpy as np
 
 
+def _params_finite(tree) -> bool:
+    """True iff every float leaf of a params tree (nested dicts and lists of
+    arrays) is finite everywhere (pienerf_tpu/train/trainer.py:42-48)."""
+    if isinstance(tree, dict):
+        return all(_params_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_params_finite(v) for v in tree)
+    a = np.asarray(tree)
+    return not np.issubdtype(a.dtype, np.floating) or bool(
+        np.isfinite(a).all())
+
+
+def _checkpoint_path(cfg):
+    """The checkpoint the reference's trainer would load, or None for a
+    fresh field (trainer.py:371-374, :920-931): ``--ckpt latest`` the
+    newest ``ngp_ep*.npz`` of the workspace, else its newest
+    ``ngp_ep*.pth``, and ``--ckpt_path`` is not read; otherwise
+    ``--ckpt_path`` if given, else ``--ckpt <file>``; ``--ckpt scratch``
+    with no ``--ckpt_path`` none."""
+    if cfg.ckpt == "latest":
+        ckdir = os.path.join(cfg.workspace, "checkpoints")
+        found = (sorted(glob.glob(os.path.join(ckdir, "ngp_ep*.npz")))
+                 or sorted(glob.glob(os.path.join(ckdir, "ngp_ep*.pth"))))
+        return found[-1] if found else None
+    if cfg.ckpt_path:
+        return cfg.ckpt_path
+    return None if cfg.ckpt in ("scratch", None) else cfg.ckpt
+
+
 def _load_field(cfg, device):
-    """(spec, packed weights) from the newest native checkpoint, or a
-    seeded random field when the workspace has none."""
+    """(spec, packed weights) of the checkpoint ``_checkpoint_path`` names
+    (its ``ema_params``; the mlp architecture read from the weight
+    shapes), or of a seeded random field when there is none, the file is
+    missing, or its ``params`` hold a non-finite value (refused with a
+    log line, as trainer.py:932-948 refuses it)."""
     import torch
 
     from pienerf_tpu_torch.io.checkpoint import load_native
@@ -43,29 +79,35 @@ def _load_field(cfg, device):
     if cfg.backbone != "mlp":
         raise NotImplementedError(
             f"backbone {cfg.backbone!r}: only the mlp backbone is ported "
-            f"(hashgrid: ROADMAP.md queue 1 item 10); pass --backbone mlp")
+            f"(hashgrid: ROADMAP.md queue 1 item 8); pass --backbone mlp")
     spec = network.make_spec(bound=cfg.bound,
                              compute_dtype=cfg.compute_dtype)
-    ckdir = os.path.join(cfg.workspace, "checkpoints")
-    npz = sorted(glob.glob(os.path.join(ckdir, "ngp_ep*.npz")))
-    if cfg.ckpt_path or (not npz and glob.glob(os.path.join(ckdir, "*.pth"))):
-        raise NotImplementedError(
-            "only native ngp_ep*.npz checkpoints load; the .pth import is "
-            "ROADMAP.md queue 1 item 10")
-    if npz:
-        tree, _ = load_native(npz[-1])
-        params = tree.get("ema_params", tree.get("params", tree))
-        sn, cn = params["sigma_net"], params["color_net"]
+    path = _checkpoint_path(cfg)
+    ema = None
+    if path is not None and os.path.exists(path):
+        if path.endswith(".pth"):
+            raise NotImplementedError(
+                f"{path}: only native .npz checkpoints load; the .pth "
+                "import (load_torch_ngp) is ROADMAP.md queue 1 item 8")
+        tree, _ = load_native(path)
+        params = tree.get("params", tree)
+        if _params_finite(params):
+            ema = tree.get("ema_params", params)
+        else:
+            print(f"[ckpt] REFUSING to load {path}: params contain "
+                  "non-finite values (corrupt checkpoint)")
+    if ema is not None:
+        sn, cn = ema["sigma_net"], ema["color_net"]
         spec = spec._replace(
             n_freqs=(sn[0].shape[0] // 3 - 1) // 2, hidden_dim=sn[0].shape[1],
             hidden_dim_color=cn[0].shape[1], num_layers=len(sn),
             num_layers_color=len(cn))
-        field = field_from_numpy(params, spec, device)
-        print(f"[ckpt] loaded {npz[-1]}")
+        field = field_from_numpy(ema, spec, device)
+        print(f"[ckpt] loaded {path}")
     else:
         gen = torch.Generator().manual_seed(cfg.seed)
         field = network.FieldMLP(spec, generator=gen, device=device)
-        print("[ckpt] no checkpoint: random field from --seed")
+        print("[ckpt] no checkpoint loaded: random field from --seed")
     return spec, field_kernel.pack_weights(field, spec, device)
 
 

@@ -6,9 +6,10 @@ named as in ``tools/pallas_gather_probe.py`` of the JAX package, each
 fetch B rows of 128 f32 (512 bytes) from a table of T rows by random
 indices, and each is checked to equal ``table[idx]`` exactly:
 
-  A_onehot     exact one-hot product against the table streamed through
-               shared memory (``kernels.probes.onehot_fetch``); the cost per
-               fetch grows with T, so only the small tables run it
+  A_onehot     the dense one-hot product on the tensor cores, the table
+               split into three bf16 parts so that it stays exact
+               (``kernels.probes.onehot_fetch``); the cost per fetch grows
+               with T, so only the small tables run it
   B_dynslice   one thread copies its rows serially: the per-access floor
   C_index_select  ``torch.index_select(table, 0, idx)``, the library baseline
   D_dma        per-row asynchronous copies, 8 in flight per block

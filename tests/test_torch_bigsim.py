@@ -197,6 +197,42 @@ def test_cast_B_bf16_matches_jax_bf16_step(big):
     assert _rel(a, b) <= 1e-3
 
 
+def _bf16_step_rel(step, consts, consts_bf, state):
+    """max |one bf16-storage step - one f32 step| / max |ddof| from one
+    state: how far bf16 operator storage moves a step (chip_smoke.py's
+    ``bf16_step_rel``)."""
+    a = np.asarray(step(consts_bf, state).ddof, np.float32)
+    b = np.asarray(step(consts, state).ddof, np.float32)
+    return float(np.abs(a - b).max() / np.abs(np.asarray(state.ddof)).max())
+
+
+@pytest.mark.parametrize("scene", ["fixture", "chip"])
+def test_cast_B_bf16_step_moves_the_state_as_jax(big, scene):
+    """bf16 operator storage moves one step by a few percent of the state's
+    scale, and the JAX package's own step reads the same: the port's
+    reading is the reference's behaviour, not a port fault. ``fixture``:
+    the state after the fixture's 10-step drag; ``chip``: chip_smoke.py's
+    big_sim scene (8,144 IPs, kres 7, 20 drag steps), whose JAX reading
+    sets the card's limit on ``bf16_step_rel``."""
+    if scene == "fixture":
+        jc, tc = big["jc"], big["tc"]
+        _, js, ts = big["traj"]
+    else:
+        args, kw = _scene(0.036, 7)
+        jc, js0, jaux = jsim.sim_init(*args, **kw)
+        tc, ts0, _ = tsim.sim_init(*args, **kw, device=CPU)
+        assert jaux["n_ip"] == 8144 and jc.B is None
+        _, js, ts = _trajectory(dict(js=js0), jc, tc, steps=20)
+    jstep = jax.jit(jsim.sim_step)
+    r_jax = _bf16_step_rel(jstep, jc, jsim.cast_B_bf16(jc), js)
+    r_port = _bf16_step_rel(tsim.sim_step, tc, tsim.cast_B_bf16(tc), ts)
+    msg = f"{scene}: JAX {r_jax:.6g}, port {r_port:.6g}"
+    # readings on the CPU: fixture 7.72e-3 / 7.67e-3; chip 0.05247 /
+    # 0.05249, the card's own 0.0525
+    assert 1e-3 < r_jax < 0.1, msg
+    assert r_jax / 1.5 <= r_port <= 1.5 * r_jax, msg
+
+
 def test_sim_init_cached_miss_then_hit(tmp_path):
     args, kw = _scene(0.1, 7)
     cache = str(tmp_path / "sim_cache")

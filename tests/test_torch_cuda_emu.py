@@ -6,10 +6,12 @@ fiber per CUDA thread of a block, all on one host thread, switched at
 immediate copy; blocks in turn), and its C entry point is held against the
 plain PyTorch version on small inputs: the field kernel, the tile kernel in
 every mode and schedule (default, paired, ``block_tiles``), f32 and bf16,
-the four fetch probes and the shell. The bf16 instantiations' tensor-core
-instruction (``mma_mlp.cuh:mma_bf16_16816``) is emulated at a warp barrier
-from the 32 lanes' fragments: bf16 products exact in f32, added to the
-accumulator one by one in increasing k. The fibers run in a fixed order
+the four fetch probes and the shell. The tensor-core instruction of the
+bf16 instantiations and of the one-hot fetch (``mma.cuh:mma_bf16_16816``)
+is emulated at a warp barrier from the 32 lanes' fragments: bf16 products
+exact in f32, added to the accumulator one by one in increasing k. The f32
+field kernel is also held bit for bit against the per-point FMA chains it
+replaced (``FIELD_REF_CU``). The fibers run in a fixed order
 that reverses from pass to pass, so a missing barrier shows on every run.
 Nothing here is left to the card alone for want of emulation: the probes
 use no mbarrier and no bulk copy. This checks the kernels' indexing,
@@ -62,7 +64,7 @@ CUDA_RUNTIME_H = r"""
 #define __host__
 #define __forceinline__ inline
 #define __restrict__ __restrict
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
@@ -80,6 +82,12 @@ inline float __uint_as_float(uint32_t u) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 // Blocks run in turn. Each CUDA thread of a block is a fiber on the calling
@@ -318,6 +326,75 @@ inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
 """
 
+# The f32 field kernel as it was before the register-blocked MLP: one
+# point a thread through field_point (Net64) and 128 points a pass, two
+# threads a point, through field_points_wide (Net128), both still in
+# field_mlp.cuh (the tile kernel's f32 path). The field kernel must equal
+# it bit for bit.
+FIELD_REF_CU = r"""
+#include "field_mlp.cuh"
+namespace pienerf {
+__global__ void field_ref64(const float* x, const float* d, const float* pw,
+                            float* out, int n, float bound) {
+  using N = Net64;
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* buf = sw + N::wfloats();
+  stage_weights<N>(sw, pw);
+  __syncthreads();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float sh[16];
+    sh4<false>(d[i], d[n + i], d[2 * n + i], sh);
+    float sigma, r, g, b;
+    field_point(sw, buf, x[i], x[n + i], x[2 * n + i], bound, sh, sigma, r,
+                g, b);
+    out[i] = sigma;
+    out[n + i] = r;
+    out[2 * n + i] = g;
+    out[3 * n + i] = b;
+  }
+}
+__global__ void field_ref128(const float* x, const float* d, const float* pw,
+                             float* out, int n, float bound) {
+  using N = Net128;
+  constexpr int S = kWidePoints;
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* A = sw + N::kWd * N::kWd;
+  float* B = A + N::kWd * S;
+  const bool owner = threadIdx.x < S;
+  for (int c = blockIdx.x; c < (n + S - 1) / S; c += gridDim.x) {
+    const int i = c * S + (threadIdx.x & (S - 1));
+    const bool live = owner && i < n;
+    float x0 = 0.f, x1 = 0.f, x2 = 0.f, d0 = 0.f, d1 = 0.f, d2 = 1.f;
+    if (live) {
+      x0 = x[i]; x1 = x[n + i]; x2 = x[2 * n + i];
+      d0 = d[i]; d1 = d[n + i]; d2 = d[2 * n + i];
+    }
+    float sh[16];
+    sh4<false>(d0, d1, d2, sh);
+    float sigma = 0.f, r = 0.f, g = 0.f, b = 0.f;
+    field_points_wide<N>(sw, A, B, pw, owner, x0, x1, x2, bound, sh, sigma,
+                         r, g, b);
+    if (live) {
+      out[i] = sigma; out[n + i] = r; out[2 * n + i] = g; out[3 * n + i] = b;
+    }
+  }
+}
+}  // namespace pienerf
+extern "C" int field_ref(const float* x, const float* d, const float* pw,
+                         float* out, int n, float bound, int wd) {
+  using namespace pienerf;
+  if (wd == 64) {
+    emu_launch(field_ref64, 2, 256, mlp_smem_bytes<Net64>(256),
+               (cudaStream_t)nullptr, x, d, pw, out, n, bound);
+  } else {
+    emu_launch(field_ref128, 2, 256, mlp_smem_bytes<Net128>(256),
+               (cudaStream_t)nullptr, x, d, pw, out, n, bound);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
@@ -340,10 +417,12 @@ def libs(tmp_path_factory):
             code += "\nnamespace pienerf { float4 smem4[232448 / 16]; }\n"
             src = src[:-3] + ".cpp"
         (d / src).write_text(code)
+    (d / "field_ref.cpp").write_text(
+        FIELD_REF_CU + "\nnamespace pienerf { float4 smem4[232448 / 16]; }\n")
     procs = {}
     # all compilers at once; without _FORTIFY_SOURCE, whose checked
     # longjmp refuses a jump to another stack (a fiber's)
-    for name, src in _build.SOURCES.items():
+    for name, src in {**_build.SOURCES, "field_ref": "field_ref.cu"}.items():
         so = d / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
@@ -415,6 +494,50 @@ def test_emulated_field_kernel_matches_plain(libs, wd, dtype):
     tol = (1e-4, 1e-5) if dtype == "float32" else (1e-2, 1e-3)
     np.testing.assert_allclose(out[0], sigma.numpy(), rtol=tol[0])
     np.testing.assert_allclose(out[1:], rgb.numpy(), atol=tol[1])
+
+
+@pytest.mark.parametrize("n", [300, 77, 1500])
+@pytest.mark.parametrize("wd", [64, 128])
+def test_emulated_f32_field_kernel_equals_per_point_chains(libs, wd, n):
+    """The register-blocked f32 field kernel against the per-point FMA
+    chains it replaced (field_point, field_points_wide): every output is
+    the same chain in the same order, so the two agree bit for bit. A
+    ragged N (300), one smaller than a block's pass (77), and one that
+    takes the grid's two blocks round more than once (1500)."""
+    spec, pw = _weights(wd, 11)
+    x, d = _points(12, n)
+    out = _field_run(libs, spec, pw, x, d)
+    ref = np.full((4, n), np.nan, np.float32)
+    fn = libs["field_ref"].field_ref
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_int]
+    assert fn(_ptr(x), _ptr(d), _ptr(pw.numpy()), _ptr(ref), n, spec.bound,
+              wd) == 0
+    assert np.isfinite(ref).all()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_emulated_wide_f32_field_kernel_equals_64_on_embedded_weights(libs):
+    """The 64-wide net embedded in the 128-wide student (test_torch_wide's
+    embed_wide): the zero padding adds exact zeros to every chain, so the
+    Wd 128 f32 field kernel equals the Wd 64 one bit for bit."""
+    from test_torch_wide import embed_wide
+    spec64 = _spec(64)
+    rng = np.random.RandomState(13)
+    dims = ([51, 64, 64, 64, 16], [31, 64, 64, 3])
+    params = {k: [rng.uniform(-1, 1, (a, b)).astype(np.float32)
+                  * np.float32(np.sqrt(3.0 / a)) for a, b in zip(d, d[1:])]
+              for k, d in zip(("sigma_net", "color_net"), dims)}
+    pw64 = tfk.pack_weights(field_from_numpy(params, spec64, CPU), spec64,
+                            CPU)
+    pw128 = tfk.pack_weights(field_from_numpy(embed_wide(params), _spec(128),
+                                              CPU), _spec(128), CPU)
+    x, d = _points(14, 300)
+    o64 = _field_run(libs, spec64, pw64, x, d)
+    o128 = _field_run(libs, _spec(128), pw128, x, d)
+    assert np.isfinite(o64).all() and o64[0].std() > 0
+    np.testing.assert_array_equal(o128, o64)
 
 
 _LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
@@ -738,15 +861,63 @@ def test_emulated_fetch_kernels_equal_plain(libs, which):
     out = np.full((B, tpr.ROW), np.nan, np.float32)
     fn = libs["probes"].pienerf_fetch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
-    assert fn(tpr.FETCHES.index(which), _ptr(table), _ptr(idx), _ptr(out), T,
-              B, 1, None) == 0
+    nbytes = libs["probes"].pienerf_onehot_scratch_bytes
+    nbytes.restype = ctypes.c_longlong
+    nbytes.argtypes = [ctypes.c_int]
+    scratch = np.full(nbytes(T), 0xff, np.uint8)
+    assert fn(tpr.FETCHES.index(which), _ptr(table), _ptr(idx), _ptr(out),
+              _ptr(scratch), T, B, 1, None) == 0
     ok = (idx >= 0) & (idx < T)
     ref = np.zeros_like(out)
     ref[ok] = tpr.fetch_plain(torch.from_numpy(table),
                               torch.from_numpy(idx[ok])).numpy()
     np.testing.assert_array_equal(out, ref)
+
+
+def test_emulated_onehot_split_is_exact_at_extreme_exponents(libs):
+    """The tensor-core one-hot fetch splits every table value into three
+    bf16 parts: exact for every finite value on bf16's grid. The table
+    holds full 24-bit significands from 2^-110 to 2^127 (FLT_MAX, which
+    a rounded top part would turn into inf, included), FLT_MIN, the f32
+    subnormals on bf16's grid (multiples of 2^-133), signed zeros, and the
+    row count is no multiple of the k16 tile."""
+    rng = np.random.RandomState(15)
+    T, B = 300, 1024
+    sig = rng.randint(1 << 23, 1 << 24, (T, tpr.ROW)).astype(np.float64)
+    exp = rng.randint(-110, 104, (T, tpr.ROW))
+    table = (np.where(rng.rand(T, tpr.ROW) < 0.5, -1.0, 1.0) * sig
+             * np.exp2(exp - 23.0)).astype(np.float32)
+    f32 = np.finfo(np.float32)
+    special = np.array([f32.max, -f32.max, f32.tiny, -f32.tiny,
+                        np.float32(2.0 ** 127), 0.0, -0.0]
+                       + [k * 2.0 ** -133 for k in (1, 3, 77, 127, -5)],
+                       np.float32)
+    table[rng.randint(0, T, special.size), rng.randint(0, tpr.ROW,
+                                                       special.size)] = special
+    assert (np.abs(table[table != 0]) < f32.tiny).any()   # subnormals
+    assert np.isfinite(table).all()
+    idx = rng.randint(0, T, B).astype(np.int32)
+    rows = np.nonzero(np.isin(table, special).any(1))[0]
+    idx[:rows.size] = rows                          # every special fetched
+    out = np.full((B, tpr.ROW), np.nan, np.float32)
+    fn = libs["probes"].pienerf_fetch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    nbytes = libs["probes"].pienerf_onehot_scratch_bytes
+    nbytes.restype = ctypes.c_longlong
+    nbytes.argtypes = [ctypes.c_int]
+    scratch = np.full(nbytes(T), 0xff, np.uint8)
+    assert fn(tpr.FETCHES.index("onehot"), _ptr(table), _ptr(idx), _ptr(out),
+              _ptr(scratch), T, B, 1, None) == 0
+    ref = table[idx]
+    # bit for bit, signs of zeros aside (an accumulator adds -0 to +0)
+    np.testing.assert_array_equal(out, ref)
+    both = ref != 0
+    np.testing.assert_array_equal(out[both].view(np.uint32),
+                                  ref[both].view(np.uint32))
 
 
 @pytest.mark.parametrize("arm", ["full", "no-bs", "no-cand", "no-dirs",
