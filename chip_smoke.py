@@ -22,7 +22,8 @@ entry points at full width on the trained checkpoint:
   the tile kernel's paired and block_tiles schedules: each against its
     plain version and, bit for bit, against the default schedule, then the
     bench frame through each;
-  the tools: gather_probe (four row-fetch kernels and torch.index_select)
+  the tools: gather_probe (four row-fetch kernels and torch.index_select,
+    at three table sizes: two in the L2, one beyond it)
     and micro_floor (the tile kernel's shell, six arms);
   the large-scene simulator: a pinned sphere above 6,000 IPs through the
     cached init, the chunked and the dense operator, bf16 storage and one
@@ -37,7 +38,10 @@ readings; the prior_ms line just before it gives each kernel's time before
 the tensor-core MLP (``pr4_ms``: commit 35c7b8a, whose bf16 MLP ran as FMA
 chains), and for the kernels redesigned since commit ba2b58d (the
 register-blocked f32 field kernel, the tensor-core one-hot fetch) that
-commit's time too (``pr5_ms``). field_kernel_embedded holds the
+commit's time too (``pr5_ms``), and for the two fetches redesigned since
+commit 9fe92db (``dynslice_fetch`` as one warp-wide access a row,
+``dma_fetch`` on bulk copies and mbarriers) that commit's time
+(``pr6_ms``). field_kernel_embedded holds the
 f32 field kernel at Wd 128 on the embedded checkpoint bit for bit to Wd 64;
 big_sim holds bf16 operator storage to the JAX package's own reading and
 runs a 200-step drag under it.
@@ -123,6 +127,11 @@ PRIOR_FIELD_BF16_MS = {64: 1.597, 128: 6.064}
 # (an f32 FMA loop, now on the tensor cores)
 PR5_MS = {"field_kernel": 1.547, "field_kernel_w128": 5.776,
           "onehot_fetch": 4.770}
+# the times at commit 9fe92db (the same script and card) of the two fetches
+# redesigned since: dynslice (one thread a block, 32 float4s a row, now one
+# warp-wide access a row) and dma (a cp.async ring of one warp a block, now
+# bulk copies on mbarriers, 16 warps a block)
+PR6_MS = {"dynslice_fetch": 0.5037, "dma_fetch": 0.06295}
 # bf16 storage of the sim operator moves one step of the 8,144-IP big_sim
 # scene by about 5% of the state's scale, and that is the reference's own
 # behaviour: from the same state after the same 20-step drag, JAX's
@@ -251,6 +260,8 @@ def ptxas_report(log: str) -> list:
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur is not None:
             cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(m[1]) if m else 0
     return rows
 
 
@@ -577,11 +588,18 @@ def main() -> None:
     t0 = time.perf_counter()
     rep = _build.build()
     ptxas = {k: ptxas_report(v["log"]) for k, v in rep.items()}
+    fetch_smem = _build.library("probes").pienerf_fetch_smem_bytes
+    fetch_smem.restype = ctypes.c_longlong
+    fetch_smem.argtypes = [ctypes.c_int]
     for rows in ptxas.values():
         for r in rows:
             if "inst" in r:
                 r["resident_blocks"], r["dynamic_smem_bytes"] = occupancy(
                     _build, r.pop("inst"))
+            elif r["kernel"] in ("onehot_fetch", "dma_fetch",
+                                 "dynslice_fetch"):
+                r["dynamic_smem_bytes"] = fetch_smem(
+                    pk.FETCHES.index(r["kernel"][:-len("_fetch")]))
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     # ---- the trained field (bench.py adopts the arch from the weights)
@@ -1288,9 +1306,21 @@ def main() -> None:
     onehot_ops = dict(ops_bound_ms=oh_bound, ops_bound_by="operations",
                       share_of_bf16_peak=oh_bound / oh_ms,
                       vs_library=oh_ms / fetch_rows["onehot"]["library_ms"])
+    for n in ("dma", "dynslice"):
+        fetch_rows[n]["vs_library"] = (fetch_rows[n]["ms"]
+                                       / fetch_rows[n]["library_ms"])
     probe_bounds = {
         T: (u * pk.ROW * 4 + PROBE_ROWS * 4 + PROBE_ROWS * pk.ROW * 4)
         / PEAK_BYTES * 1e3 for T, u in probe.pop("unique_rows").items()}
+    # a bulk copy takes only 16-byte-aligned addresses: the wrapper refuses
+    # a table that starts off that boundary, before any launch
+    try:
+        pk.dma_fetch(table.view(-1)[1:1 + 512 * pk.ROW].view(512, pk.ROW),
+                     idx[:512] % 512)
+        raise AssertionError("dma_fetch took a table off 16 bytes")
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            raise
     emit("gather_probe", rows=PROBE_ROWS, row_bytes=pk.ROW * 4, arms=probe,
          onehot_T8192=onehot_ops,
          bound_ms_by_table=probe_bounds,
@@ -1593,7 +1623,9 @@ def main() -> None:
         row(f"{n}_fetch", psrc,
             f"tools/pallas_gather_probe.py:{probe_lines[n]}",
             probe_launches[f"fetch_{n}"], fetch_rows[n],
-            **(onehot_ops if n == "onehot" else {}))
+            **(onehot_ops if n == "onehot" else
+               {"vs_library": fetch_rows[n]["vs_library"]}
+               if n in ("dma", "dynslice") else {}))
         for n in pk.FETCHES
     ] + [
         row("floor_shell", psrc, "tools/micro_floor.py:56",
@@ -1603,7 +1635,7 @@ def main() -> None:
     # the earlier commits' times, constants of this file and not this
     # run's readings, on their own line beside the kernels line
     emit("prior_ms", pr4_ms=PRIOR_MS, pr4_field_bf16_ms=PRIOR_FIELD_BF16_MS,
-         pr5_ms=PR5_MS)
+         pr5_ms=PR5_MS, pr6_ms=PR6_MS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

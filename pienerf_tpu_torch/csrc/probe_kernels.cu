@@ -14,17 +14,33 @@
 //            multiplied (mma.sync m16n8k16, bf16 in, f32 accumulators; see
 //            the onehot section). Bound by operations: 3 x T x 128 MACs per
 //            fetched row at the bf16 rate.
-//   dma      per-row asynchronous copies device memory -> shared memory,
-//            8 in flight in a ring per block, then out. The copies are
-//            `cp.async` (16 bytes per lane, one warp per 512-byte row, one
-//            commit group per row, wait_prior(7)), not the bulk tensor
-//            copy with an mbarrier: a lane reads back the 16 bytes it
-//            copied itself, so no barrier is needed, and a fault cannot
-//            leave a thread spinning on a barrier phase. Bound by bytes.
+//   dma      per-row bulk copies device memory -> shared memory, the
+//            counterpart of the TPU probe's one DMA descriptor a row
+//            (pltpu.make_async_copy, one semaphore a slot, depth 8): one
+//            lane issues each 512-byte row as one cp.async.bulk that
+//            completes on its slot's mbarrier (csrc/bulk.cuh), in a ring of
+//            kDepth = 8 slots per issuing warp. kDmaWarps = 16 warps a
+//            block, each over its own 32 of the block's 512 rows, keep 128
+//            rows (64 KB) in flight an SM. The warp waits on a slot's phase
+//            and writes the row out with its own 16-byte stores. Bound by
+//            bytes. The cp.async ring of one warp a block that it replaced
+//            kept at most 1,024 rows in flight across the card, too few to
+//            cover the latency, and lost to torch.index_select; PERF.md
+//            holds the times of both designs on the card.
 //   take     the card's native data-parallel gather: one warp per row, each
 //            lane one coalesced 16-byte load and store. Bound by bytes.
-//   dynslice one thread per block of 512 indices copies its rows one after
-//            the other: the per-access latency floor.
+//   dynslice the per-access latency floor: the TPU probe copies its 512
+//            rows one after the other, each one [1, 128] dynamic slice, its
+//            indices in SMEM. Here one warp a block of 512 indices stages
+//            them in shared memory, then copies row after row, each one
+//            warp-wide access (16 bytes a lane, 512 coalesced bytes), in a
+//            loop that is neither unrolled nor spread over more warps: so
+//            each row waits for the last, and the time is 512 latencies of
+//            a data-dependent row access that nothing hides. Bound by bytes
+//            all the same, far above it by design. It replaced one thread
+//            a block copying 32 float4s a row, which timed one thread's
+//            issue rate rather than the access latency; PERF.md holds the
+//            times of both designs on the card.
 // The TPU probes kept the two small tables (1 MB, 4 MB) resident in VMEM.
 // A block here has 227 KB of shared memory, so no table is resident on
 // chip in that sense: the small ones sit in the 50 MB L2, the 2^19-row one
@@ -42,13 +58,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk.cuh"
 #include "mma.cuh"
 
 namespace pienerf {
 
 constexpr int kRow = 128;          // floats per table row (512 bytes)
 constexpr int kFetchBlock = 512;   // B is a multiple (dma, dynslice: a block)
-constexpr int kDepth = 8;          // dma: copies in flight per block
+constexpr int kRowBytes = kRow * 4;
+constexpr int kDepth = 8;          // dma: slots a warp's ring
 
 // ---- onehot -------------------------------------------------------------
 // The table is split into three bf16 parts, x = hi + mid + lo: hi keeps the
@@ -245,41 +263,73 @@ onehot_fetch_kernel(const uint2* __restrict__ parts,
 }
 
 // ---- dma ----------------------------------------------------------------
-// One warp per block. Lane l owns bytes [16 l, 16 l + 16) of every slot.
-__global__ void __launch_bounds__(32)
+// kDmaWarps issuing warps a block, each over kDmaRows consecutive rows of
+// the block's 512 with its own ring of kDepth slots and one mbarrier a
+// slot. Lane 0 issues row i into slot i % kDepth: arrive.expect_tx of 512
+// bytes, then the bulk copy; an index outside [0, T) issues no copy, zeroes
+// the slot and arrives without bytes, so every use of a slot completes one
+// phase and use i waits on parity (i / kDepth) & 1. After the wait every
+// lane stores its 16 bytes of the row; the __syncwarp after the stores
+// frees the slot, and lane 0 issues the slot's next row. The slot's generic
+// reads have completed by then (each fed a store), so the next copy may
+// overwrite it without a proxy fence; a generic write (the zeros) is fenced.
+constexpr int kDmaWarps = 16;
+constexpr int kDmaRows = kFetchBlock / kDmaWarps;
+static_assert(kDepth <= kDmaRows, "a warp's rows fill its ring");
+// dynamic shared memory: the rings, the mbarriers, the block's indices
+constexpr size_t kDmaRingBytes = (size_t)kDmaWarps * kDepth * kRowBytes;
+constexpr size_t kDmaSmem =
+    kDmaRingBytes + kDmaWarps * kDepth * sizeof(uint64_t) + kFetchBlock * 4;
+
+__global__ void __launch_bounds__(kDmaWarps * 32)
 dma_fetch_kernel(const float* __restrict__ table, const int* __restrict__ idx,
                  float* __restrict__ out, int T) {
-  extern __shared__ float4 smem4[];     // the ring: [kDepth][kRow / 4]
-  float4 (*ring)[kRow / 4] = reinterpret_cast<float4 (*)[kRow / 4]>(smem4);
-  const int lane = threadIdx.x;
+  extern __shared__ float4 smem4[];
+  constexpr int kQ = kRow / 4;                 // float4s a row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint64_t* all_bars =
+      reinterpret_cast<uint64_t*>(reinterpret_cast<char*>(smem4) +
+                                  kDmaRingBytes);
+  int* s_idx = reinterpret_cast<int*>(all_bars + kDmaWarps * kDepth);
+  float4* ring = smem4 + warp * kDepth * kQ;   // [kDepth][kQ]
+  uint64_t* bars = all_bars + warp * kDepth;
   const int b0 = blockIdx.x * kFetchBlock;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // start the copy of row idx[b0 + i] into `slot`; always one commit group
-  auto start = [&](int slot, int i) {
-    const int row = idx[b0 + i];
+  for (int e = threadIdx.x; e < kFetchBlock; e += kDmaWarps * 32) {
+    s_idx[e] = idx[b0 + e];
+  }
+  if (lane < kDepth) {
+    mbar_init(&bars[lane], 1);
+    fence_proxy_async();                       // the init, for the copies
+  }
+  __syncthreads();
+  const int* rows = s_idx + warp * kDmaRows;
+  float4* o = reinterpret_cast<float4*>(out) +
+              (size_t)(b0 + warp * kDmaRows) * kQ;
+  auto issue = [&](int i) {                    // lane 0 only
+    const int s = i % kDepth;
+    const int row = rows[i];
     if ((unsigned)row < (unsigned)T) {
-      __pipeline_memcpy_async(
-          &ring[slot][lane],
-          reinterpret_cast<const float4*>(table + (size_t)row * kRow) + lane,
-          sizeof(float4));
+      mbar_arrive_expect_tx(&bars[s], kRowBytes);
+      bulk_load(ring + s * kQ, table + (size_t)row * kRow, kRowBytes,
+                &bars[s]);
     } else {
-      ring[slot][lane] = zero;
+      for (int q = 0; q < kQ; ++q) {
+        ring[s * kQ + q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      fence_proxy_async();                     // before the next copy
+      mbar_arrive(&bars[s]);
     }
-    __pipeline_commit();
   };
-
-  for (int s = 0; s < kDepth; ++s) start(s, s);      // fill the ring
-  for (int i = 0; i < kFetchBlock; ++i) {
-    const int slot = i % kDepth;
-    __pipeline_wait_prior(kDepth - 1);               // copy i has landed
-    reinterpret_cast<float4*>(out + (size_t)(b0 + i) * kRow)[lane] =
-        ring[slot][lane];
-    if (i + kDepth < kFetchBlock) {
-      start(slot, i + kDepth);
-    } else {
-      __pipeline_commit();       // keep one group per step for wait_prior
-    }
+  if (lane == 0) {
+    for (int i = 0; i < kDepth; ++i) issue(i);
+  }
+#pragma unroll 1
+  for (int i = 0; i < kDmaRows; ++i) {
+    const int s = i % kDepth;
+    mbar_wait(&bars[s], (i / kDepth) & 1);
+    o[(size_t)i * kQ + lane] = ring[s * kQ + lane];
+    __syncwarp();                              // every lane has read slot s
+    if (lane == 0 && i + kDepth < kDmaRows) issue(i + kDepth);
   }
 }
 
@@ -304,20 +354,30 @@ take_fetch_kernel(const float* __restrict__ table, const int* __restrict__ idx,
 }
 
 // ---- dynslice -----------------------------------------------------------
-__global__ void __launch_bounds__(1)
+// One warp a block of 512 indices. The indices go to shared memory first
+// (the TPU arm's SMEM index array), so the loop waits on no index load
+// from device memory. The loop stays serial on purpose: no unrolling
+// across rows and no second warp, because the arm measures the latency of
+// one data-dependent row access that nothing else hides.
+__global__ void __launch_bounds__(32)
 dynslice_fetch_kernel(const float* __restrict__ table,
                       const int* __restrict__ idx, float* __restrict__ out,
                       int T) {
+  extern __shared__ float4 smem4[];
+  constexpr int kQ = kRow / 4;
+  int* s_idx = reinterpret_cast<int*>(smem4);  // [kFetchBlock]
+  const int lane = threadIdx.x;
   const int b0 = blockIdx.x * kFetchBlock;
+  for (int e = lane; e < kFetchBlock; e += 32) s_idx[e] = idx[b0 + e];
+  __syncwarp();
+  const float4* tab = reinterpret_cast<const float4*>(table);
+  float4* o = reinterpret_cast<float4*>(out) + (size_t)b0 * kQ;
+#pragma unroll 1
   for (int i = 0; i < kFetchBlock; ++i) {
-    const int row = idx[b0 + i];
-    const bool ok = (unsigned)row < (unsigned)T;
-    const float4* src =
-        reinterpret_cast<const float4*>(table + (size_t)(ok ? row : 0) * kRow);
-    float4* dst = reinterpret_cast<float4*>(out + (size_t)(b0 + i) * kRow);
-    for (int q = 0; q < kRow / 4; ++q) {
-      dst[q] = ok ? src[q] : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    const int row = s_idx[i];
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if ((unsigned)row < (unsigned)T) v = tab[(size_t)row * kQ + lane];
+    o[(size_t)i * kQ + lane] = v;
   }
 }
 
@@ -403,6 +463,15 @@ cudaError_t launch_shell(const float* tile_sc, const void* bin_start,
 
 }  // namespace pienerf
 
+// Dynamic shared memory of a fetch kernel's block (which as for
+// pienerf_fetch; ptxas reports only static shared memory).
+extern "C" long long pienerf_fetch_smem_bytes(int which) {
+  using namespace pienerf;
+  return which == 0 ? 2 * kOhKc * kOhTileU2 * (long long)sizeof(uint2)
+         : which == 1 ? (long long)kDmaSmem
+         : which == 3 ? kFetchBlock * 4 : 0;
+}
+
 // which: 0 onehot, 1 dma, 2 take, 3 dynslice. B must be a multiple of 512
 // for all but take. `n_sm` sizes take's grid. `scratch` holds onehot's
 // table parts (pienerf_onehot_scratch_bytes(T) bytes; unused otherwise).
@@ -417,6 +486,7 @@ extern "C" int pienerf_fetch(int which, const void* table, const void* idx,
   if (B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   if (which != 2 && B % kFetchBlock != 0) return (int)cudaErrorInvalidValue;
   const int grid = B / kFetchBlock;
+  const size_t smem = pienerf_fetch_smem_bytes(which);
   if (which == 0) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     uint2* parts = static_cast<uint2*>(scratch);
@@ -424,7 +494,6 @@ extern "C" int pienerf_fetch(int which, const void* table, const void* idx,
     const int n_split = KT * (kRow / 8) * 32;
     onehot_split_kernel<<<(n_split + 255) / 256, 256, 0, s>>>(tab, parts, T,
                                                               KT);
-    const size_t smem = 2 * kOhKc * kOhTileU2 * sizeof(uint2);
     cudaError_t err = cudaFuncSetAttribute(
         onehot_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -432,8 +501,11 @@ extern "C" int pienerf_fetch(int which, const void* table, const void* idx,
     onehot_fetch_kernel<<<B / kOhFetches, kOhThreads, smem, s>>>(parts, ix, o,
                                                                  T, KT);
   } else if (which == 1) {
-    const size_t smem = kDepth * kRow * sizeof(float);
-    dma_fetch_kernel<<<grid, 32, smem, s>>>(tab, ix, o, T);
+    cudaError_t err = cudaFuncSetAttribute(
+        dma_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dma_fetch_kernel<<<grid, kDmaWarps * 32, smem, s>>>(tab, ix, o, T);
   } else if (which == 2) {
     const int warps_per_block = kTakeBlock / 32;
     int g = (B + warps_per_block - 1) / warps_per_block;
@@ -441,7 +513,7 @@ extern "C" int pienerf_fetch(int which, const void* table, const void* idx,
     if (g < 1) g = 1;
     take_fetch_kernel<<<g, kTakeBlock, 0, s>>>(tab, ix, o, T, B);
   } else if (which == 3) {
-    dynslice_fetch_kernel<<<grid, 1, 0, s>>>(tab, ix, o, T);
+    dynslice_fetch_kernel<<<grid, 32, smem, s>>>(tab, ix, o, T);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -30,6 +30,15 @@ def fetch_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long()]
 
 
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary: the fetch kernels
+    move rows as 16-byte vectors, and a bulk copy (``dma``) takes only
+    16-byte-aligned addresses."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary "
+                         f"(data_ptr {t.data_ptr():#x})")
+
+
 def _fetch(which: str, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     T, B = table.shape[0], idx.shape[0]
     if table.ndim != 2 or table.shape[1] != ROW:
@@ -43,6 +52,8 @@ def _fetch(which: str, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     check_arg(table, "table", torch.float32, (T, ROW), dev)
     check_arg(idx, "idx", torch.int32, (B,), dev)
     out = torch.empty((B, ROW), dtype=torch.float32, device=dev)
+    check_aligned(table, "table")
+    check_aligned(out, "out")
     lib = _build.library("probes")
     scratch = None
     if which == "onehot":          # the table's three bf16 parts
@@ -77,8 +88,14 @@ def onehot_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def dma_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows by per-row asynchronous copies (``cp.async``) into a ring of 8
-    shared-memory slots per block, then out."""
+    """Rows by per-row bulk copies, the counterpart of the TPU probe's one
+    DMA descriptor a row: one lane issues each 512-byte row as one
+    ``cp.async.bulk`` into a ring of 8 shared-memory slots, completed on the
+    slot's mbarrier; 16 warps a block of 512 indices, 128 rows in flight;
+    the warp writes each landed row out. ``table`` must start on a 16-byte
+    boundary (raises otherwise). It replaced a ring of 8 per-lane
+    ``cp.async`` copies in one warp a block, which lost to
+    ``torch.index_select``; PERF.md holds both times on the card."""
     return _fetch("dma", table, idx)
 
 
@@ -89,8 +106,12 @@ def take_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def dynslice_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows copied one after the other by one thread per 512 indices: the
-    per-access latency floor."""
+    """The per-access latency floor: one warp per 512 indices stages them in
+    shared memory, then copies its rows one after the other, each row one
+    warp-wide 512-byte access, never unrolled. So it stays slower than
+    ``torch.index_select`` by design. It replaced one thread per 512
+    indices copying 32 float4s a row; PERF.md holds both times on the
+    card."""
     return _fetch("dynslice", table, idx)
 
 

@@ -10,14 +10,19 @@ indices, and each is checked to equal ``table[idx]`` exactly:
                split into three bf16 parts so that it stays exact
                (``kernels.probes.onehot_fetch``); the cost per fetch grows
                with T, so only the small tables run it
-  B_dynslice   one thread copies its rows serially: the per-access floor
+  B_dynslice   one warp per 512 indices copies its rows serially, one
+               warp-wide 512-byte access a row: the per-access floor,
+               which a serial loop keeps far from the bytes bound
   C_index_select  ``torch.index_select(table, 0, idx)``, the library baseline
-  D_dma        per-row asynchronous copies, 8 in flight per block
+  D_dma        per-row bulk copies (``cp.async.bulk`` on an mbarrier, one
+               a row), a ring of 8 per warp, 16 warps per block of 512:
+               the TPU probe's row DMAs, and the mechanism a hashgrid
+               kernel would use on levels beyond the L2
   E_take       one warp per row, coalesced loads: the card's native gather
 
 No table is resident in shared memory (227 KB a block): the 2^11- and
 2^13-row tables (1 MB, 4 MB) sit in the L2 cache, the 2^19-row table
-(256 MB) in device memory.
+(256 MB) in device memory. PERF.md holds each arm's times on the card.
 
     python -m pienerf_tpu_torch.tools.gather_probe
 

@@ -2,21 +2,27 @@
 file of ``kernels/_build.py:SOURCES`` is compiled by the host C++ compiler
 against a small header that emulates the CUDA subset the kernels use (one
 fiber per CUDA thread of a block, all on one host thread, switched at
-``__syncthreads`` and, per warp, at ``__syncwarp``; ``cp.async`` as an
-immediate copy; blocks in turn), and its C entry point is held against the
-plain PyTorch version on small inputs: the field kernel, the tile kernel in
-every mode and schedule (default, paired, ``block_tiles``), f32 and bf16,
-the four fetch probes and the shell. The tensor-core instruction of the
-bf16 instantiations and of the one-hot fetch (``mma.cuh:mma_bf16_16816``)
-is emulated at a warp barrier from the 32 lanes' fragments: bf16 products
-exact in f32, added to the accumulator one by one in increasing k. The f32
+``__syncthreads``, per warp at ``__syncwarp``, and at an mbarrier wait;
+``cp.async`` as an immediate copy; blocks in turn), and its C entry point
+is held against the plain PyTorch version on small inputs: the field
+kernel, the tile kernel in every mode and schedule (default, paired,
+``block_tiles``), f32 and bf16, the four fetch probes and the shell. The
+tensor-core instruction of the bf16 instantiations and of the one-hot
+fetch (``mma.cuh:mma_bf16_16816``) is emulated at a warp barrier from the
+32 lanes' fragments: bf16 products exact in f32, added to the accumulator
+one by one in increasing k. The bulk copies and mbarriers of the dma fetch
+(``bulk.cuh``) are emulated as late as they may land: a bulk load is
+recorded on its mbarrier and lands only when a wait on its phase
+completes; a bulk store reads shared memory at the ``bulk_wait_read`` that
+retires its group, or when its thread ends; a wait yields its fiber until
+the phase completes. Shared memory is filled with NaN before every block,
+so a slot read before its wait, or overwritten before its store has read
+it, gives a wrong row (``MBAR_REF_CU`` shows both are caught). The f32
 field kernel is also held bit for bit against the per-point FMA chains it
-replaced (``FIELD_REF_CU``). The fibers run in a fixed order
-that reverses from pass to pass, so a missing barrier shows on every run.
-Nothing here is left to the card alone for want of emulation: the probes
-use no mbarrier and no bulk copy. This checks the kernels' indexing,
-barriers and control flow; the card's compiler, timing and rounding are
-checked by ``chip_smoke.py``."""
+replaced (``FIELD_REF_CU``). The fibers run in a fixed order that reverses
+from pass to pass, so a missing barrier shows on every run. This checks
+the kernels' indexing, barriers and control flow; the card's compiler,
+timing and rounding are checked by ``chip_smoke.py``."""
 
 import ctypes
 import ctypes.util
@@ -53,12 +59,14 @@ CUDA_RUNTIME_H = r"""
 #include <cstdlib>
 #include <algorithm>
 #include <functional>
+#include <map>
 #include <memory>
 #include <vector>
 #include <math.h>
 #include <setjmp.h>
 #include <ucontext.h>
 #define PIENERF_EMU_MMA 1
+#define PIENERF_EMU_BULK 1
 #define __global__
 #define __device__
 #define __host__
@@ -97,20 +105,50 @@ inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 // until it ends or waits at a barrier, and alternates the direction of its
 // passes, so that a read missing its barrier meets the write in one order
 // or the other. The last member to arrive at a barrier runs its completion
-// step, if any, and releases the others. A pass in which every unfinished
-// thread waits is a deadlock (threads of a block or a warp at different
-// barriers): the emulation aborts.
+// step, if any, and releases the others. A fiber that waits on an
+// mbarrier phase yields until the phase completes. A pass in which every
+// unfinished thread waits is a deadlock (threads of a block or a warp at
+// different barriers, or on a phase that never completes): the emulation
+// aborts.
 struct EmuBarrier {
   int expected = 0, count = 0;
   unsigned gen = 0;
+};
+// An mbarrier (bulk.cuh): arrivals and transaction bytes outstanding in the
+// current phase. A bulk load takes its bytes off at once but is only
+// recorded: it lands when a wait on its phase completes, so a read of the
+// slot before that wait sees the poison (or an older row).
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  size_t n;
+  unsigned phase;                           // the phase it completes
+};
+struct EmuMbar {
+  int expected = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;
+  std::vector<EmuCopy> copies;              // not yet landed
+};
+// A bulk store is recorded in its thread's bulk groups and reads shared
+// memory at the thread's bulk_wait_read that retires its group, or when
+// the thread ends.
+struct EmuStore {
+  void* dst;
+  const void* src;
+  size_t n;
 };
 struct EmuFiber {
   ucontext_t start;                         // its first entry
   jmp_buf env;                              // where it waits
   const EmuBarrier* wait = nullptr;
   unsigned wait_gen = 0;
+  const EmuMbar* mbar = nullptr;            // or the mbarrier it waits on
+  unsigned mbar_parity = 0;
   bool started = false, done = false;
   int gen = 0;                              // __syncthreads_or's slot
+  std::vector<EmuStore> open;               // the open bulk group
+  std::vector<std::vector<EmuStore>> groups;  // committed, oldest first
 };
 inline jmp_buf emu_sched;
 inline std::vector<EmuFiber> emu_fibers;
@@ -197,6 +235,76 @@ inline void emu_mma_bf16_16816(float* d, const uint32_t* a,
   __syncwarp();
   std::memcpy(d, w.d[lane], 16);
 }
+inline std::map<const void*, EmuMbar> emu_mbars;   // this block's
+inline EmuMbar& emu_mbar(const void* bar) {
+  auto it = emu_mbars.find(bar);
+  if (it == emu_mbars.end()) {
+    std::fprintf(stderr, "emulated mbarrier used before its init\n");
+    std::abort();
+  }
+  return it->second;
+}
+inline void emu_mbar_step(EmuMbar& m) {        // the phase may complete
+  if (m.pending == 0 && m.tx == 0) {
+    ++m.phase;
+    m.pending = m.expected;
+  }
+}
+inline void emu_mbar_init(uint64_t* bar, int count) {
+  emu_mbars[bar] = EmuMbar{count, count};
+}
+inline void emu_mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  EmuMbar& m = emu_mbar(bar);
+  if (m.pending == 0) {
+    std::fprintf(stderr, "emulated mbarrier: an arrival too many\n");
+    std::abort();
+  }
+  m.tx += bytes;
+  --m.pending;
+  emu_mbar_step(m);
+}
+inline void emu_mbar_arrive(uint64_t* bar) { emu_mbar_arrive_expect_tx(bar, 0); }
+inline void emu_bulk_load(void* dst, const void* src, int bytes,
+                          uint64_t* bar) {
+  EmuMbar& m = emu_mbar(bar);
+  m.copies.push_back({dst, src, (size_t)bytes, m.phase});
+  m.tx -= bytes;
+  emu_mbar_step(m);
+}
+inline void emu_mbar_wait(uint64_t* bar, int parity) {
+  EmuMbar& m = emu_mbar(bar);
+  if ((m.phase & 1u) == (unsigned)parity) {    // not yet complete: yield
+    EmuFiber& f = emu_fibers[threadIdx.x];
+    f.mbar = &m;
+    f.mbar_parity = (unsigned)parity;
+    if (!_setjmp(f.env)) _longjmp(emu_sched, 1);
+  }
+  size_t k = 0;                                 // land completed phases'
+  for (const EmuCopy& c : m.copies) {
+    if (c.phase < m.phase) {
+      std::memcpy(c.dst, c.src, c.n);
+    } else {
+      m.copies[k++] = c;
+    }
+  }
+  m.copies.resize(k);
+}
+inline void emu_bulk_store(void* dst, const void* src, int bytes) {
+  emu_fibers[threadIdx.x].open.push_back({dst, src, (size_t)bytes});
+}
+inline void emu_bulk_commit() {
+  EmuFiber& f = emu_fibers[threadIdx.x];
+  f.groups.push_back(std::move(f.open));
+  f.open.clear();
+}
+inline void emu_bulk_wait_read(int n) {
+  EmuFiber& f = emu_fibers[threadIdx.x];
+  while (f.groups.size() > (size_t)n) {
+    for (const EmuStore& st : f.groups.front())
+      std::memcpy(st.dst, st.src, st.n);
+    f.groups.erase(f.groups.begin());
+  }
+}
 inline int __syncthreads_or(int p) {
   int& slot = emu_fibers[threadIdx.x].gen;
   const int g = slot;
@@ -235,6 +343,8 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
 namespace pienerf { extern float4 smem4[]; }
 inline void emu_fiber_entry() {
   emu_body();
+  emu_bulk_commit();                        // what is left reads now
+  emu_bulk_wait_read(0);
   emu_fibers[threadIdx.x].done = true;
   _longjmp(emu_sched, 1);
 }
@@ -249,7 +359,8 @@ void emu_launch(K k, long long grid, int threads, size_t smem, cudaStream_t,
   emu_body = [&] { k(args...); };
   for (long long b = 0; b < grid; ++b) {
     blockIdx.x = (unsigned)b;
-    std::memset(pienerf::smem4, 0xff, smem);   // no zeros to lean on
+    std::memset(pienerf::smem4, 0xff, smem);   // NaN: no zeros to lean on
+    emu_mbars.clear();
     emu_block_bar = EmuBarrier{threads};
     for (int w = 0; w < (threads + 31) / 32; ++w)
       emu_warp_bar[w] = EmuBarrier{std::min(32, threads - 32 * w)};
@@ -268,9 +379,11 @@ void emu_launch(K k, long long grid, int threads, size_t smem, cudaStream_t,
       for (int i = 0; i < threads; ++i) {
         const int t = pass % 2 ? threads - 1 - i : i;
         EmuFiber& f = emu_fibers[t];
-        if (f.done || (f.wait != nullptr && f.wait->gen == f.wait_gen))
+        if (f.done || (f.wait != nullptr && f.wait->gen == f.wait_gen) ||
+            (f.mbar != nullptr && (f.mbar->phase & 1u) == f.mbar_parity))
           continue;
         f.wait = nullptr;
+        f.mbar = nullptr;
         threadIdx.x = t;
         ran = true;
         if (!_setjmp(emu_sched)) {
@@ -281,8 +394,8 @@ void emu_launch(K k, long long grid, int threads, size_t smem, cudaStream_t,
         if (f.done) --left;
       }
       if (!ran) {
-        std::fprintf(stderr, "emulated block %lld: deadlock at a barrier\n",
-                     b);
+        std::fprintf(stderr, "emulated block %lld: deadlock at a barrier "
+                     "or an mbarrier phase\n", b);
         std::abort();
       }
     }
@@ -395,6 +508,56 @@ extern "C" int field_ref(const float* x, const float* d, const float* pw,
 }
 """
 
+# Two kernels of the emulated bulk copies themselves. read_around_wait: lane
+# 0 issues one 512-byte bulk load into a slot, and every lane copies its 16
+# bytes of the slot out before the mbarrier wait (early) and after it
+# (late). store_then_overwrite: one thread bulk-stores a slot it filled,
+# then overwrites the slot, with or without bulk_wait_read<0> between.
+MBAR_REF_CU = r"""
+#include "bulk.cuh"
+namespace pienerf {
+__global__ void read_around_wait(const float* row, float* early,
+                                 float* late) {
+  float4* slot = smem4;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4 + 32);
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    mbar_init(bar, 1);
+    fence_proxy_async();
+  }
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive_expect_tx(bar, 512);
+    bulk_load(slot, row, 512, bar);
+  }
+  reinterpret_cast<float4*>(early)[lane] = slot[lane];
+  mbar_wait(bar, 0);
+  reinterpret_cast<float4*>(late)[lane] = slot[lane];
+}
+__global__ void store_then_overwrite(const float* row, float* out,
+                                     int wait_read) {
+  float* slot = reinterpret_cast<float*>(smem4);
+  for (int q = 0; q < 128; ++q) slot[q] = row[q];
+  fence_proxy_async();
+  bulk_store(out, slot, 512);
+  bulk_commit();
+  if (wait_read) bulk_wait_read<0>();
+  for (int q = 0; q < 128; ++q) slot[q] = -1.f;
+}
+}  // namespace pienerf
+extern "C" int mbar_read(const float* row, float* early, float* late) {
+  emu_launch(pienerf::read_around_wait, 1, 32, 512 + 8,
+             (cudaStream_t)nullptr, row, early, late);
+  return (int)cudaGetLastError();
+}
+extern "C" int bulk_store_overwrite(const float* row, float* out,
+                                    int wait_read) {
+  emu_launch(pienerf::store_then_overwrite, 1, 1, 512,
+             (cudaStream_t)nullptr, row, out, wait_read);
+  return (int)cudaGetLastError();
+}
+"""
+
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
@@ -406,23 +569,28 @@ def libs(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
     (d / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
-    # kern<<<grid, block, smem, stream>>>(args) -> emu_launch(...), in the
-    # headers too
-    for src in os.listdir(CSRC):
-        with open(os.path.join(CSRC, src)) as f:
-            code = f.read()
+
+    def emulated(code, is_cu=True):
+        """kern<<<grid, block, smem, stream>>>(args) -> emu_launch(...), in
+        the headers too; a .cu file defines the shared memory"""
         code = re.sub(r"(\w+)<<<(.*?),\s*(\w+)>>>\(",
                       r"emu_launch(\1, \2, (cudaStream_t)\3, ", code)
-        if src.endswith(".cu"):
-            code += "\nnamespace pienerf { float4 smem4[232448 / 16]; }\n"
-            src = src[:-3] + ".cpp"
-        (d / src).write_text(code)
-    (d / "field_ref.cpp").write_text(
-        FIELD_REF_CU + "\nnamespace pienerf { float4 smem4[232448 / 16]; }\n")
+        return code + ("\nnamespace pienerf { float4 smem4[232448 / 16]; }\n"
+                       if is_cu else "")
+
+    for src in os.listdir(CSRC):
+        with open(os.path.join(CSRC, src)) as f:
+            code = emulated(f.read(), src.endswith(".cu"))
+        (d / src.replace(".cu", ".cpp") if src.endswith(".cu")
+         else d / src).write_text(code)
+    tests_cu = {"field_ref": FIELD_REF_CU, "mbar_ref": MBAR_REF_CU}
+    for name, code in tests_cu.items():
+        (d / f"{name}.cpp").write_text(emulated(code))
     procs = {}
     # all compilers at once; without _FORTIFY_SOURCE, whose checked
     # longjmp refuses a jump to another stack (a fiber's)
-    for name, src in {**_build.SOURCES, "field_ref": "field_ref.cu"}.items():
+    for name, src in {**_build.SOURCES,
+                      **{n: f"{n}.cu" for n in tests_cu}}.items():
         so = d / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
@@ -847,17 +1015,10 @@ def test_emulated_block_tiles_equals_one_tile_per_block(libs, mode, wd,
     np.testing.assert_array_equal(out, ref)
 
 
-@pytest.mark.parametrize("which", tpr.FETCHES)
-def test_emulated_fetch_kernels_equal_plain(libs, which):
-    """All four fetch mechanisms run emulated (the asynchronous copies of
-    the dma arm as immediate ones): exact rows, a table whose row count is
-    no multiple of the one-hot chunk, and zero rows for indices outside
-    it."""
-    rng = np.random.RandomState(5)
-    T, B = 300, 1024
-    table = rng.randn(T, tpr.ROW).astype(np.float32)
-    idx = rng.randint(0, T, B).astype(np.int32)
-    idx[7], idx[600] = T, -1
+def _fetch_run(libs, which, table, idx):
+    """The emulated fetch kernel ``which`` -> out [B, 128] (NaN where it
+    wrote nothing)."""
+    T, B = table.shape[0], idx.shape[0]
     out = np.full((B, tpr.ROW), np.nan, np.float32)
     fn = libs["probes"].pienerf_fetch
     fn.restype = ctypes.c_int
@@ -869,11 +1030,95 @@ def test_emulated_fetch_kernels_equal_plain(libs, which):
     scratch = np.full(nbytes(T), 0xff, np.uint8)
     assert fn(tpr.FETCHES.index(which), _ptr(table), _ptr(idx), _ptr(out),
               _ptr(scratch), T, B, 1, None) == 0
-    ok = (idx >= 0) & (idx < T)
-    ref = np.zeros_like(out)
+    return out
+
+
+def _fetch_ref(table, idx):
+    """fetch_plain, with zero rows for indices outside [0, T)."""
+    ok = (idx >= 0) & (idx < table.shape[0])
+    ref = np.zeros((idx.shape[0], tpr.ROW), np.float32)
     ref[ok] = tpr.fetch_plain(torch.from_numpy(table),
                               torch.from_numpy(idx[ok])).numpy()
-    np.testing.assert_array_equal(out, ref)
+    return ref
+
+
+@pytest.mark.parametrize("which", tpr.FETCHES)
+def test_emulated_fetch_kernels_equal_plain(libs, which):
+    """All four fetch mechanisms run emulated (the dma arm's bulk copies
+    landing at their mbarrier waits): exact rows, a table whose row count
+    is no multiple of the one-hot chunk, and zero rows for indices outside
+    it."""
+    rng = np.random.RandomState(5)
+    T, B = 300, 1024
+    table = rng.randn(T, tpr.ROW).astype(np.float32)
+    idx = rng.randint(0, T, B).astype(np.int32)
+    idx[7], idx[600] = T, -1
+    np.testing.assert_array_equal(_fetch_run(libs, which, table, idx),
+                                  _fetch_ref(table, idx))
+
+
+@pytest.mark.parametrize("B", [512, 1536])
+@pytest.mark.parametrize("T", [1, 300, 4096])
+@pytest.mark.parametrize("which", ["dma", "dynslice"])
+def test_emulated_serial_fetches_equal_plain(libs, which, T, B):
+    """The two serial arms over table sizes from one row to more rows than
+    the block fetches, and one block or three: every warp's ring (dma)
+    turns over its whole share, and indices outside [0, T) on each side
+    give zero rows."""
+    rng = np.random.RandomState(T + B)
+    table = rng.randn(T, tpr.ROW).astype(np.float32)
+    idx = rng.randint(0, T, B).astype(np.int32)
+    idx[rng.randint(0, B, 9)] = np.array([T, -1, T + 5, 1 << 30, -7, T, -1,
+                                          T, -1], np.int32)
+    np.testing.assert_array_equal(_fetch_run(libs, which, table, idx),
+                                  _fetch_ref(table, idx))
+
+
+@pytest.mark.parametrize("which", tpr.FETCHES)
+def test_emulated_fetch_block_all_outside_gives_zeros(libs, which):
+    """A block whose 512 indices all lie outside [0, T) completes (no
+    mbarrier phase is left waiting: every slot arrives without bytes) and
+    writes zero rows; the next block fetches as usual."""
+    rng = np.random.RandomState(16)
+    T = 64
+    table = rng.randn(T, tpr.ROW).astype(np.float32)
+    idx = rng.randint(0, T, 1024).astype(np.int32)
+    idx[:512] = np.where(rng.rand(512) < 0.5, -1 - rng.randint(0, 9, 512),
+                         T + rng.randint(0, 9, 512))
+    out = _fetch_run(libs, which, table, idx)
+    assert not out[:512].any()
+    np.testing.assert_array_equal(out, _fetch_ref(table, idx))
+
+
+def test_emulated_mbarrier_read_before_wait_sees_poison(libs):
+    """The emulation can fail a missing mbarrier wait: a slot read before
+    the wait on its bulk load's phase reads the NaN poison, and after the
+    wait the row."""
+    row = np.random.RandomState(17).randn(tpr.ROW).astype(np.float32)
+    early = np.zeros(tpr.ROW, np.float32)
+    late = np.zeros(tpr.ROW, np.float32)
+    fn = libs["mbar_ref"].mbar_read
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3
+    assert fn(_ptr(row), _ptr(early), _ptr(late)) == 0
+    assert np.isnan(early).all()
+    np.testing.assert_array_equal(late, row)
+
+
+@pytest.mark.parametrize("wait_read", [1, 0])
+def test_emulated_bulk_store_reads_at_wait_read(libs, wait_read):
+    """A bulk store reads its slot at the bulk_wait_read that retires its
+    group: with the wait before the slot is overwritten it stores the row;
+    without it the store reads at the thread's end and stores what
+    overwrote the slot, so a slot reused too early shows."""
+    row = np.random.RandomState(18).randn(tpr.ROW).astype(np.float32)
+    out = np.full(tpr.ROW, np.nan, np.float32)
+    fn = libs["mbar_ref"].bulk_store_overwrite
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    assert fn(_ptr(row), _ptr(out), wait_read) == 0
+    np.testing.assert_array_equal(
+        out, row if wait_read else np.full(tpr.ROW, -1.0, np.float32))
 
 
 def test_emulated_onehot_split_is_exact_at_extreme_exponents(libs):

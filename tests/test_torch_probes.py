@@ -135,3 +135,15 @@ def test_tool_mains_run_as_modules_and_refuse_without_a_card(tmp_path):
     for tool in (gather_probe, micro_floor):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tool.main([])
+
+
+def test_fetch_wrappers_refuse_a_table_off_16_bytes():
+    """The fetch kernels move rows as 16-byte vectors and the dma arm's
+    bulk copies take only 16-byte-aligned addresses: the wrappers check
+    the table and out with ``check_aligned`` before a launch."""
+    buf = torch.zeros(64 * tpr.ROW + 4)
+    tpr.check_aligned(buf, "table")
+    tpr.check_aligned(buf[4:], "table")               # 16 bytes in
+    for off in (1, 2, 3):
+        with pytest.raises(ValueError, match="16-byte"):
+            tpr.check_aligned(buf[off:], "table")
