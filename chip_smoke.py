@@ -41,7 +41,13 @@ register-blocked f32 field kernel, the tensor-core one-hot fetch) that
 commit's time too (``pr5_ms``), and for the two fetches redesigned since
 commit 9fe92db (``dynslice_fetch`` as one warp-wide access a row,
 ``dma_fetch`` on bulk copies and mbarriers) that commit's time
-(``pr6_ms``). field_kernel_embedded holds the
+(``pr6_ms``), and for the tile kernel's rows, whose window scan is one
+pass a sub-segment since commit db7d684, that commit's time (``pr7_ms``).
+tile_split runs the tile kernel's timed instantiation on the bench
+inputs (deformed, both widths) and the cut pass's: its output equal to
+the untimed kernel's, where each tile's cycles go (window staging, scan,
+bend and blend, MLP, composite) and how the tiles fill the card's slots.
+field_kernel_embedded holds the
 f32 field kernel at Wd 128 on the embedded checkpoint bit for bit to Wd 64;
 big_sim holds bf16 operator storage to the JAX package's own reading and
 runs a 200-step drag under it.
@@ -132,6 +138,13 @@ PR5_MS = {"field_kernel": 1.547, "field_kernel_w128": 5.776,
 # warp-wide access a row) and dma (a cp.async ring of one warp a block, now
 # bulk copies on mbarriers, 16 warps a block)
 PR6_MS = {"dynslice_fetch": 0.5037, "dma_fetch": 0.06295}
+# the tile rows' times at commit db7d684 (the same script and card), whose
+# scan made num_seek passes over the window for every sample
+PR7_MS = {"tile_kernel": 3.297, "tile_kernel_static": 8.210,
+          "tile_kernel_cut": 3.162, "tile_kernel_w128": 6.108,
+          "tile_kernel_static_w128": 22.65, "tile_kernel_cut_w128": 9.338,
+          "tile_kernel_paired": 3.389, "tile_kernel_paired_static": 8.017,
+          "tile_kernel_paired_cut": 3.308, "tile_kernel_block": 7.082}
 # bf16 storage of the sim operator moves one step of the 8,144-IP big_sim
 # scene by about 5% of the state's scale, and that is the reference's own
 # behaviour: from the same state after the same 20-step drag, JAX's
@@ -237,10 +250,12 @@ def ptxas_report(log: str) -> list:
                             block=b.group(5) == "1",
                             mode=("static" if b.group(2) == "0" else
                                   "cut" if b.group(3) == "1"
-                                  else "deformed"))
+                                  else "deformed"),
+                            timed="EEELb1EEEv" in name)
                 label = (f"tile {inst['mode']}"
                          + (" paired" if inst["paired"] else "")
-                         + (" block" if inst["block"] else ""))
+                         + (" block" if inst["block"] else "")
+                         + (" timed" if inst["timed"] else ""))
             elif "field_eval" in name:
                 label = "field"
             else:                      # the probes: no MLP, no width
@@ -267,7 +282,8 @@ def ptxas_report(log: str) -> list:
 
 def occupancy(_build, inst: dict) -> tuple:
     """(resident blocks per SM, dynamic shared memory bytes) of one field
-    or tile kernel instantiation, from its library's occupancy entry
+    or tile kernel instantiation (the timed ones too), from its library's
+    occupancy entry
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's shared
     memory; the bending modes at Wn = 64)."""
     blocks, smem = ctypes.c_int(), ctypes.c_int()
@@ -277,7 +293,11 @@ def occupancy(_build, inst: dict) -> tuple:
         rc = lib.pienerf_field_occupancy(int(inst["bf16"]), inst["wd"], *out)
     else:
         mode = (int(inst["mode"] != "static"), int(inst["mode"] == "cut"))
-        if inst["paired"]:
+        if inst["timed"]:
+            lib = _build.library("tile")
+            rc = lib.pienerf_render_tiles_timed_occupancy(
+                mode[1], inst["wd"], 64, *out)
+        elif inst["paired"]:
             lib = _build.library("tile_paired")
             rc = lib.pienerf_render_tiles_paired_occupancy(
                 2 if inst["block"] else 1, int(inst["bf16"]), *mode, 64, 64,
@@ -527,6 +547,66 @@ def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
     return row
 
 
+def tile_split(phase, tk, spec16, pw, args, kw, base_row, resident,
+               n_sm, **extra) -> dict:
+    """The tile kernel's timed instantiation on one pass's inputs (bf16):
+    its output ``torch.equal`` to the untimed kernel's, then where a tile's
+    cycles go. Per phase (window staging, scan, bend and blend, MLP,
+    composite with the early exit): its share of the summed warp cycles
+    and its warp cycles per executed sample step (a warp's 32 rays one
+    sample on); the timed and untimed ms, timed in turns. The tail: the
+    spread of the tiles' total cycles (max / mean), the waves (active
+    tiles over ``resident`` x ``n_sm`` slots), the share of tiles in the
+    last wave and the share of the kernel's span after the last wave's
+    first start (global timer), and the slots' fill (the tiles' summed
+    ns over slots x span)."""
+    import torch
+    skw = {k: kw[k] for k in ("K", "Ks", "Ksb", "Wn", "num_seek", "cut")}
+    out_t, cyc = tk.render_tiles_timed(spec16, pw, *args, **skw)
+    base = tk.render_tiles(spec16, pw, *args, **kw)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out_t, base))
+    active = args[0][:, 2] > 0
+    c = cyc[active].double().cpu()                     # [n, 8 warps, 8]
+    n_ph = len(tk.SPLIT_PHASES)
+    ph = c[..., :n_ph].sum(dim=(0, 1))
+    steps = base_row["executed_segments"] * tk.T2 * kw["Ks"] / 32
+    total = c[..., n_ph].amax(1)                       # per tile
+    start, end = c[..., n_ph + 1].amin(1), c[..., n_ph + 2].amax(1)
+    span = float(end.max() - start.min())
+    n, slots = int(c.shape[0]), resident * n_sm
+    n_last = n % slots or slots
+    last_start = float(start.sort().values[n - n_last])
+    ms_u = [cuda_ms(lambda: tk.render_tiles(spec16, pw, *args, **kw), 5)]
+    ms_t = [cuda_ms(lambda: tk.render_tiles_timed(spec16, pw, *args,
+                                                  **skw), 5)
+            for _ in range(2)]
+    ms_u.append(cuda_ms(lambda: tk.render_tiles(spec16, pw, *args, **kw),
+                        5))
+    row = dict(
+        width=pw.shape[-1], mode="cut" if kw["cut"] else "deformed",
+        num_seek=kw["num_seek"], equals_untimed=equal, active_tiles=n,
+        executed_segments=base_row["executed_segments"],
+        share={p: float(ph[i] / ph.sum())
+               for i, p in enumerate(tk.SPLIT_PHASES)},
+        warp_cycles_per_sample_step={p: float(ph[i] / steps)
+                                     for i, p in enumerate(
+                                         tk.SPLIT_PHASES)},
+        phases_over_total=float(ph.sum() / c[..., n_ph].sum()),
+        tile_cycles_mean=float(total.mean()),
+        tile_cycles_max_over_mean=float(total.max() / total.mean()),
+        resident_blocks=resident, slots=slots, waves=n / slots,
+        last_wave_tiles_share=n_last / n,
+        last_wave_span_share=float(end.max() - last_start) / span,
+        slot_fill=float((end - start).sum()) / (slots * span),
+        span_ms=span * 1e-6, ms=float(np.mean(ms_u)),
+        timed_ms=float(np.mean(ms_t)), ms_reps=ms_u, timed_ms_reps=ms_t,
+        **extra)
+    emit(phase, **row)
+    assert equal, row
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -600,7 +680,11 @@ def main() -> None:
                                  "dynslice_fetch"):
                 r["dynamic_smem_bytes"] = fetch_smem(
                     pk.FETCHES.index(r["kernel"][:-len("_fetch")]))
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    # per library: its nvcc's seconds (all start together) and its kernel
+    # entries
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc_s={k: v["seconds"] for k, v in rep.items()},
+         entries={k: len(v) for k, v in ptxas.items()}, ptxas=ptxas)
 
     # ---- the trained field (bench.py adopts the arch from the weights)
     tree, _ = load_native(CKPT)
@@ -779,6 +863,19 @@ def main() -> None:
         ist, pack, p_def, o, pose, intr, H, W, act_ids, act_mask, bbmin,
         bbmax)
     tile_row = tile_check("tile_kernel", tk, (spec32, spec16), pw, args, kw)
+    # each window lands by one bulk copy, which takes only 16-byte-aligned
+    # addresses: the wrapper refuses candidates off that boundary, before
+    # any launch
+    cand_off = torch.empty(args[4].numel() + 4, device=dev)[1:1 + args[4]
+                                                           .numel()]
+    cand_off = cand_off.view_as(args[4])
+    cand_off.copy_(args[4])
+    try:
+        tk.render_tiles(spec16, pw, *args[:4], cand_off, **kw)
+        raise AssertionError("render_tiles took candidates off 16 bytes")
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            raise
     tile_row_w = tile_check("tile_kernel_w128", tk, (spec32_w, spec16_w),
                             pw_fill, args, kw, pw_f32=pw_w)
 
@@ -1137,6 +1234,23 @@ def main() -> None:
         rows_c["cut" + suffix] = tile_check(
             "tile_kernel_cut" + suffix, tk, specs, weights, args_b, kw_b,
             pw_f32=w32)
+
+    # ---- where the tile kernel's cycles go: the timed instantiation on
+    # the bench inputs (deformed, both widths) and the cut pass's, with
+    # the timed and untimed instantiations' resident blocks per SM
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split_rows = {}
+    for mode, wd, weights, spec, a_, k_, base in (
+            ("deformed", 64, pw, spec16, args, kw, tile_row),
+            ("deformed", 128, pw_fill, spec16_w, args, kw, tile_row_w),
+            ("cut", 64, pw, spec16, args_b, kw_b, rows_c["cut"])):
+        inst = dict(kernel="tile", mode=mode, wd=wd, bf16=True,
+                    paired=False, block=False)
+        res_t = occupancy(_build, dict(inst, timed=True))[0]
+        res_u = occupancy(_build, dict(inst, timed=False))[0]
+        split_rows[mode, wd] = tile_split(
+            "tile_split", tk, spec, weights, a_, k_, base, res_t, n_sm,
+            untimed_resident_blocks=res_u)
 
     # ---- main path 2, fidelity: f32, five pushes from rest, the fused cut
     # frame against the port's cut-mode oracle over every tile that hits
@@ -1635,7 +1749,7 @@ def main() -> None:
     # the earlier commits' times, constants of this file and not this
     # run's readings, on their own line beside the kernels line
     emit("prior_ms", pr4_ms=PRIOR_MS, pr4_field_bf16_ms=PRIOR_FIELD_BF16_MS,
-         pr5_ms=PR5_MS, pr6_ms=PR6_MS)
+         pr5_ms=PR5_MS, pr6_ms=PR6_MS, pr7_ms=PR7_MS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,13 +49,26 @@
 //
 // What bounds it on this card: operations. Each executed sample costs the
 // 18,752-MAC (Wd 64) or 63,616-MAC (Wd 128) field MLP plus, in the bending
-// modes, num_seek
-// nearest-candidate passes over a Wn-row window; a tile reads ~30 KB and
-// writes 8 KB. The work depends on the data (early exit, empty-segment
-// skip), so the bound counts executed segments x 256 rays x Ks samples.
+// modes, its distance to each of the Wn window rows and num_seek nearest
+// picks; a tile reads ~30 KB and writes 8 KB. The work depends on the data
+// (early exit, empty-segment skip), so the bound counts executed segments
+// x 256 rays x Ks samples.
 //
 // Design: one thread per ray, 256 threads per block; every per-sample
 // intermediate stays on chip (registers, and shared memory for the MLP).
+// The bending modes work a sub-segment (Ksb samples, one candidate window)
+// at a time: the window's Wn x 16 floats land in shared memory by one bulk
+// copy on an mbarrier (bulk.cuh), issued by one thread as soon as the
+// block is done with the previous window, so it lands while that
+// sub-segment's samples run through the MLP; a copy issued for a segment
+// the early exit then drops is waited on before the buffer is reused or
+// the block exits. Each thread then makes one pass over the rows in range
+// for up to kKsbMax samples of its ray at once (bend_samples: each row
+// read once, as one 16-byte load, the nearest rows of every sample kept
+// sorted in registers; the TPU kernel's [Wn, T2 * Ksb] distance array,
+// tile_kernel.py:400-410), bends them, and leaves their bent positions in
+// shared memory for the MLP loop, so that nothing of the scan is live
+// across the MLP.
 // bf16 (every mode, width and schedule): each warp runs its 32 rays'
 // samples through the MLP on the tensor cores (mma_mlp.cuh: mma_field, or
 // mma_field_paired), every layer's bf16 weights staged once per block; the
@@ -67,18 +80,19 @@
 // threads per sample and one layer's weights staged at a time
 // (field_points_wide), which every thread reaches. The TPU kernel's
 // one-hot MXU fetch becomes a plain indexed read from the sub-segment's
-// candidate window,
-// which the block copies to shared memory (Wn x 16 f32) beside the staged
-// weights. The argmin uses a strict `<` in row order, so ties go to the
-// lowest row as jnp.argmin does, and previously chosen rows are excluded
-// instead of overwritten. The per-tile early exit is a block-wide OR
+// candidate window in shared memory. The nearest rows are kept on a strict
+// `<` in row order, so ties go to the lowest row as jnp.argmin does and
+// the rows come in the order of the reference's num_seek argmin passes.
+// The per-tile early exit is a block-wide OR
 // (__syncthreads_or) of "this ray's transmittance is still >= T_thresh",
 // the only segment-level control flow besides the deformed mode's
-// tile-uniform skip. Blocks carry nothing across tiles and use no atomics.
+// tile-uniform skip. A block carries only its staged weights and its
+// window phase count from tile to tile, and uses no atomics.
 // The build uses -fmad=false so the scalar sample, bend and cut-box
 // arithmetic rounds as the reference does; the MLP uses explicit FMAs.
 #pragma once
 
+#include "bulk.cuh"
 #include "field_mlp.cuh"
 
 namespace pienerf {
@@ -110,8 +124,246 @@ __host__ __device__ constexpr size_t mlp_bytes() {
   return BF16 ? mma_smem_bytes<N>(kT2) : mlp_smem_bytes<N>(kT2);
 }
 
+// The timed instantiations (TIMED, tile_kernel.cu only) add up each
+// warp's clock cycles per phase of a tile: window staging (its waits and
+// barriers included), the nearest-row scan, the bend and blend, the MLP,
+// the composite with the segment's early-exit barrier; then the tile's
+// total cycles and its start and end on the global nanosecond timer. Lane
+// 0 of each warp writes them to cyc[a, warp, kSplit]. The sums are 32-bit
+// (a tile runs far fewer than 2^32 cycles), to keep the registers the
+// untimed kernel has.
+constexpr int kPhases = 5;
+constexpr int kSplit = kPhases + 3;
+
+__device__ __forceinline__ long long globaltimer_ns() {
+#ifdef PIENERF_EMU_CLOCK
+  return emu_globaltimer();
+#else
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+#endif
+}
+
+template <bool ON>
+struct PhaseClock {
+  unsigned sum[kPhases];
+  unsigned last, t0;
+  __device__ __forceinline__ static unsigned now() {
+    return (unsigned)clock64();
+  }
+  __device__ __forceinline__ static long long* slot(long long* cyc, int a) {
+    return cyc + ((size_t)a * (kT2 / 32) + (threadIdx.x >> 5)) * kSplit;
+  }
+  __device__ __forceinline__ void tile_start(long long* cyc, int a) {
+#pragma unroll
+    for (int p = 0; p < kPhases; ++p) sum[p] = 0;
+    if ((threadIdx.x & 31) == 0) slot(cyc, a)[kPhases + 1] = globaltimer_ns();
+    t0 = last = now();
+  }
+  __device__ __forceinline__ void mark() { last = now(); }
+  // the cycles since the last mark or lap go to phase p
+  __device__ __forceinline__ void lap(int p) {
+    const unsigned t = now();
+    sum[p] += t - last;
+    last = t;
+  }
+  __device__ __forceinline__ void tile_end(long long* cyc, int a) {
+    const unsigned t1 = now();
+    if ((threadIdx.x & 31) == 0) {
+      long long* c = slot(cyc, a);
+#pragma unroll
+      for (int p = 0; p < kPhases; ++p) c[p] = sum[p];
+      c[kPhases] = t1 - t0;
+      c[kPhases + 2] = globaltimer_ns();
+    }
+  }
+};
+template <>
+struct PhaseClock<false> {
+  __device__ __forceinline__ void tile_start(long long*, int) {}
+  __device__ __forceinline__ void mark() {}
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void tile_end(long long*, int) {}
+};
+
+// The candidate window of one sub-segment (tile_kernel.py:366-380): rows
+// [lo, hi) of the depth-sorted list lie within the bend reach of its
+// samples; the block stages the Wn rows from wa, centred on the
+// sub-segment's own bins when [lo, hi) exceeds Wn (the overflow is
+// counted). k0 is the sub-segment's first sample.
+struct Window {
+  int lo, hi, wa;
+};
+__device__ __forceinline__ Window window_of(const int* bs, int k0, int Ksb,
+                                            int halo, int K, int Wn, int P) {
+  const int lo_i = k0 + 1 - halo;
+  const int hi_i = k0 + Ksb + 1 + halo;
+  Window w;
+  w.lo = lo_i <= 0 ? 0 : bs[lo_i];
+  w.hi = hi_i >= K + 2 ? bs[K + 3] : bs[hi_i];
+  const int own_lo = bs[k0 + 1];
+  const int own_hi = bs[k0 + Ksb + 1];
+  int wa = own_lo - floordiv(Wn - (own_hi - own_lo), 2);
+  wa = min(max(wa, w.lo), max(w.lo, w.hi - Wn));
+  w.wa = min(max(wa, 0), P - Wn);
+  return w;
+}
+
+// The first segment at or after s that runs: the deformed mode skips a
+// segment with no candidate in its halo window (every sample unfound,
+// sigma 0; tile-uniform).
+template <bool SKIP>
+__device__ __forceinline__ int next_segment(int s, int n_seg, const int* bs,
+                                            int Ks, int K, int halo) {
+  if constexpr (SKIP) {
+    for (; s < n_seg; ++s) {
+      const int slo_i = s * Ks + 1 - halo;
+      const int shi_i = s * Ks + Ks + 1 + halo;
+      const int slo = slo_i <= 0 ? 0 : bs[slo_i];
+      const int shi = shi_i >= K + 2 ? bs[K + 3] : bs[shi_i];
+      if (shi - slo > 0) break;
+    }
+  }
+  return s;
+}
+
+// One thread issues a window: its Wn rows of 16 floats from `src` as one
+// bulk copy, completed on `bar`. A reader waits on the phase first.
+__device__ __forceinline__ void window_issue(float* win, uint64_t* bar,
+                                             const float* src, int Wn) {
+  const int bytes = Wn * 16 * (int)sizeof(float);
+  mbar_arrive_expect_tx(bar, bytes);
+  bulk_load(win, src, bytes, bar);
+}
+
+// Samples one window pass serves; a sub-segment of more makes one pass per
+// kKsbMax of them.
+constexpr int kKsbMax = 4;
+
+// Bend nk (<= kKsbMax) consecutive samples of this thread's ray through
+// the staged window (tile_kernel.py:396-463): one pass over rows [r0, r1)
+// keeps each sample's NS nearest valid rows, sorted, in registers; then per
+// sample the blend in that order: a single Newton step p_rest = p_ori +
+// F^-1 (x - p_def) from each row, the per-axis ip_dx reject and the
+// inverse-distance blend. Rows arrive in increasing order and a row goes in
+// only on a strict `<`, so ties keep the lowest row first and a NaN or
+// infinite distance never goes in: the rows and their order are those of
+// NS argmin passes that each exclude the rows already taken. Writes the
+// bent position and the found flag of sample kk to xs[(4 kk + i) kT2].
+// Sample kk sits at t0 + ((seg0 + (k + kk)) + t_jit) dt_s.
+template <int NS, bool CUT, class Clock>
+__device__ __forceinline__ void bend_samples(
+    const float* __restrict__ win, float* __restrict__ xs, int r0, int r1,
+    int nk, float t0, float seg0, int k, float t_jit, float dt_s,
+    const float* o, const float* dv, float ip_dx, const float* box,
+    Clock& clk) {
+  const int r = threadIdx.x;
+  float x[kKsbMax][3];
+  float d[kKsbMax][NS];
+  int j[kKsbMax][NS];
+#pragma unroll
+  for (int kk = 0; kk < kKsbMax; ++kk) {
+    const float t = t0 + ((seg0 + (float)(k + kk)) + t_jit) * dt_s;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) x[kk][i] = o[i] + t * dv[i];
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      d[kk][q] = INFINITY;
+      j[kk][q] = 0;
+    }
+  }
+  for (int row = r0; row < r1; ++row) {     // block-uniform bounds
+    const float* cw = win + row * 16;
+    if (!(cw[15] > 0.f)) continue;          // invalid row; block-uniform
+    const float4 p = *reinterpret_cast<const float4*>(cw);
+#pragma unroll
+    for (int kk = 0; kk < kKsbMax; ++kk) {
+      if (kk >= nk) break;
+      const float e0 = x[kk][0] - p.x;
+      const float e1 = x[kk][1] - p.y;
+      const float e2 = x[kk][2] - p.z;
+      float dd = e0 * e0;
+      dd = dd + e1 * e1;
+      dd = dd + e2 * e2;
+      if (dd < d[kk][NS - 1]) {
+        // behind every kept distance <= dd, ahead of the rest
+#pragma unroll
+        for (int q = NS - 1; q >= 0; --q) {
+          if (dd < d[kk][q]) {
+            if (q + 1 < NS) {
+              d[kk][q + 1] = d[kk][q];
+              j[kk][q + 1] = j[kk][q];
+            }
+            d[kk][q] = dd;
+            j[kk][q] = row;
+          }
+        }
+      }
+    }
+  }
+  clk.lap(1);
+#pragma unroll
+  for (int kk = 0; kk < kKsbMax; ++kk) {
+    if (kk >= nk) break;
+    const float x0 = x[kk][0], x1 = x[kk][1], x2 = x[kk][2];
+    float m0 = 0.f, m1 = 0.f, m2 = 0.f, wsum = 0.f;
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      const float best = d[kk][q];
+      if (!(best < INFINITY)) continue;     // nothing left: weight 0
+      const float* c = win + j[kk][q] * 16;
+      const float q0 = x0 - c[0];
+      const float q1 = x1 - c[1];
+      const float q2 = x2 - c[2];
+      float rest0 = c[3] + c[6] * q0;
+      rest0 = rest0 + c[7] * q1;
+      rest0 = rest0 + c[8] * q2;
+      float rest1 = c[4] + c[9] * q0;
+      rest1 = rest1 + c[10] * q1;
+      rest1 = rest1 + c[11] * q2;
+      float rest2 = c[5] + c[12] * q0;
+      rest2 = rest2 + c[13] * q1;
+      rest2 = rest2 + c[14] * q2;
+      const bool ok3 = fabsf(rest0 - c[3]) <= ip_dx &&
+                       fabsf(rest1 - c[4]) <= ip_dx &&
+                       fabsf(rest2 - c[5]) <= ip_dx;
+      const float wgt = ok3 ? 1.0f / sqrtf(fmaxf(best, 1e-16f)) : 0.f;
+      m0 = m0 + wgt * rest0;
+      m1 = m1 + wgt * rest1;
+      m2 = m2 + wgt * rest2;
+      wsum = wsum + wgt;
+    }
+    bool found = wsum > 0.f;
+    const float invw = 1.0f / fmaxf(wsum, 1e-30f);
+    float xm0 = x0, xm1 = x1, xm2 = x2;
+    if (found) {
+      xm0 = m0 * invw;
+      xm1 = m1 * invw;
+      xm2 = m2 * invw;
+    }
+    if constexpr (CUT) {
+      // outside the cut box the static scene renders unbent
+      const bool in_cut = x0 > box[0] && x0 < box[1] && x1 > box[2] &&
+                          x1 < box[3] && x2 > box[4] && x2 < box[5];
+      if (!in_cut) {
+        found = true;
+        xm0 = x0;
+        xm1 = x1;
+        xm2 = x2;
+      }
+    }
+    float* xk = xs + 4 * kk * kT2 + r;
+    xk[0] = xm0;
+    xk[kT2] = xm1;
+    xk[2 * kT2] = xm2;
+    xk[3 * kT2] = found ? 1.f : 0.f;
+  }
+  clk.lap(2);
+}
+
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
-          class N>
+          class N, bool TIMED>
 __global__ void __launch_bounds__(kT2)
 render_tiles_kernel(const float* __restrict__ tile_sc,
                     const int* __restrict__ bin_start,
@@ -120,7 +372,8 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
                     const float* __restrict__ cand,
                     const float* __restrict__ pw, float* __restrict__ out,
                     int A, int B, int BS, int P, int K, int Ks, int Ksb,
-                    int Wn, int num_seek, float bound) {
+                    int Wn, int num_seek, float bound,
+                    long long* __restrict__ cyc) {
   constexpr bool kWide = N::kWd == 128;
   static_assert(!PAIRED || !kWide, "only the 64-wide net pairs");
   extern __shared__ float4 smem4[];
@@ -132,8 +385,18 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   [[maybe_unused]] uint32_t* wtile = reinterpret_cast<uint32_t*>(
       reinterpret_cast<char*>(smem4) + N::frag_bytes() +
       (threadIdx.x >> 5) * kWarpTileBytes);
-  float* win = reinterpret_cast<float*>(  // [Wn, 16], bending modes only
+  // bending modes only: the bent positions and found flags of up to
+  // kKsbMax samples [kKsbMax, 4, kT2]; each thread's count of the window
+  // phases it has waited on [kT2]; the window's mbarrier; the window
+  // [Wn, 16]. In this order every offset is a constant; the counts sit in
+  // shared memory, not in a register, because the f32 Wd 64 MLP leaves no
+  // register free (a register count spilled 60 bytes there).
+  [[maybe_unused]] float* xs = reinterpret_cast<float*>(
       reinterpret_cast<char*>(smem4) + mlp_bytes<BF16, N>());
+  [[maybe_unused]] int* phase =
+      reinterpret_cast<int*>(xs + kKsbMax * 4 * kT2);
+  [[maybe_unused]] uint64_t* bar = reinterpret_cast<uint64_t*>(phase + kT2);
+  [[maybe_unused]] float* win = reinterpret_cast<float*>(bar + 2);
   const int r = threadIdx.x;
 
   const float o[3] = {params[0], params[1], params[2]};
@@ -143,10 +406,22 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   const float min_near = params[12];
   const float t_jit = params[19];
   const float reach = params[20];
-  float box[6];                         // cut box (x, y, z min/max), CUT only
-#pragma unroll
-  for (int i = 0; i < 6; ++i) box[i] = CUT ? params[13 + i] : 0.f;
+  // the cut box (x, y, z min/max), CUT only
+  [[maybe_unused]] const float* box = params + 13;
 
+  // the window's mbarrier: one arrival (the issuing thread's) and the
+  // copy's bytes complete a phase; every thread counts the phases it has
+  // waited on. The barrier below orders the init before any use.
+  if constexpr (DEFORMED) {
+    phase[r] = 0;
+    if (r == 0) {
+      mbar_init(bar, 1);
+      fence_proxy_async();
+    }
+    __syncthreads();
+  }
+
+  PhaseClock<TIMED> clk;
   bool staged = false;                  // Wd 64: the weights, once per block
   // without MULTI the trip count is a compile-time 1: a loop whose count
   // the compiler cannot see costs the static mode 19% (Wd 64) to 48%
@@ -181,6 +456,7 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
       }
     }
 
+    clk.tile_start(cyc, a);
     const float* dr = dirs + (size_t)a * 8 * kT2;
     const float dv[3] = {dr[r], dr[kT2 + r], dr[2 * kT2 + r]};
 
@@ -232,211 +508,196 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
     // the one the pending sample belongs to
     float pr = 0.f, pg = 0.f, pb = 0.f;
     const int n_seg = K / Ks;
-    bool alive = true;
-    for (int s = 0; s < n_seg && alive; ++s) {
-      if constexpr (DEFORMED && !CUT) {
-        // whole-segment skip: no candidate in the segment's halo window
-        // means every sample is unfound (sigma 0); tile-uniform
-        const int slo_i = s * Ks + 1 - halo;
-        const int shi_i = s * Ks + Ks + 1 + halo;
-        const int slo = slo_i <= 0 ? 0 : bs[slo_i];
-        const int shi = shi_i >= K + 2 ? bs[K + 3] : bs[shi_i];
-        if (shi - slo <= 0) continue;
+    const int n_sub = Ks / Ksb;
+    constexpr bool kSkip = DEFORMED && !CUT;
+    int s = next_segment<kSkip>(0, n_seg, bs, Ks, K, halo);
+    if constexpr (DEFORMED) {
+      // the first executed sub-segment's window; each later one is issued
+      // once the block is done with the one before (one buffer)
+      if (r == 0 && s < n_seg) {
+        const Window w = window_of(bs, s * Ks, Ksb, halo, K, Wn, P);
+        window_issue(win, bar, cand + ((size_t)a * P + w.wa) * 16, Wn);
       }
-
+    }
+    bool alive = true;
+    while (s < n_seg && alive) {
       float seg_incl = 0.f;
       float pd = 0.f, pwt = 0.f;
-      for (int sb = 0; sb < Ks / Ksb; ++sb) {
-        int rlo = 0, rhi = 0;
+      // sample k of the segment (kk its slot in xs) through the MLP and the
+      // composite
+      auto sample = [&](const int k, const int kk) {
+        // the sample's t: the static march needs it for its position, the
+        // bending modes take it after the MLP, so that it is not live
+        // across it
+        float t = 0.f;
+        float xm0, xm1, xm2;
         if constexpr (DEFORMED) {
-          const int k0 = s * Ks + sb * Ksb;
-          const int lo_i = k0 + 1 - halo;
-          const int hi_i = k0 + Ksb + 1 + halo;
-          const int lo = lo_i <= 0 ? 0 : bs[lo_i];
-          const int hi = hi_i >= K + 2 ? bs[K + 3] : bs[hi_i];
-          // center the kept rows on the sub-segment's own bins when
-          // [lo, hi) exceeds Wn; the overflow is counted
-          const int own_lo = bs[k0 + 1];
-          const int own_hi = bs[k0 + Ksb + 1];
-          int wa = own_lo - floordiv(Wn - (own_hi - own_lo), 2);
-          wa = min(max(wa, lo), max(lo, hi - Wn));
-          wa = min(max(wa, 0), P - Wn);
-          dropped += max(hi - lo - Wn, 0);
-
-          __syncthreads();             // previous window's readers are done
-          const float* src = cand + ((size_t)a * P + wa) * 16;
-          for (int e = r; e < Wn * 16; e += kT2) win[e] = src[e];
-          __syncthreads();
-          rlo = lo - wa;
-          rhi = hi - wa;
+          const float* xk = xs + 4 * kk * kT2 + r;
+          xm0 = xk[0];
+          xm1 = xk[kT2];
+          xm2 = xk[2 * kT2];
+        } else {
+          t = t0 + (((float)(s * Ks) + (float)k) + t_jit) * dt_s;
+          xm0 = o[0] + t * dv[0];
+          xm1 = o[1] + t * dv[1];
+          xm2 = o[2] + t * dv[2];
         }
 
-        for (int kk = 0; kk < Ksb; ++kk) {
-          const int k = sb * Ksb + kk;
-          const float t = t0 + (((float)(s * Ks) + (float)k) + t_jit) * dt_s;
-          const float x0 = o[0] + t * dv[0];
-          const float x1 = o[1] + t * dv[1];
-          const float x2 = o[2] + t * dv[2];
-
-          bool found = true;
-          float xm0 = x0, xm1 = x1, xm2 = x2;
-          if constexpr (DEFORMED) {
-            // num_seek rounds: nearest remaining candidate -> single
-            // Newton step p_rest = p_ori + F^-1 (x - p_def) -> per-axis
-            // ip_dx reject -> inverse-distance blend
-            int j0 = -1, j1 = -1;
-            float m0 = 0.f, m1 = 0.f, m2 = 0.f, wsum = 0.f;
-            for (int q = 0; q < num_seek; ++q) {
-              float best = INFINITY;
-              int jb = 0;
-              for (int row = 0; row < Wn; ++row) {
-                const float* cw = win + row * 16;
-                if (row < rlo || row >= rhi || !(cw[15] > 0.f) ||
-                    row == j0 || row == j1)
-                  continue;
-                const float e0 = x0 - cw[0];
-                const float e1 = x1 - cw[1];
-                const float e2 = x2 - cw[2];
-                float dd = e0 * e0;
-                dd = dd + e1 * e1;
-                dd = dd + e2 * e2;
-                if (dd < best) {
-                  best = dd;
-                  jb = row;
-                }
-              }
-              if (q == 0) j0 = jb; else if (q == 1) j1 = jb;
-              if (!(best < INFINITY)) continue;      // nothing left: weight 0
-              const float* c = win + jb * 16;
-              const float q0 = x0 - c[0];
-              const float q1 = x1 - c[1];
-              const float q2 = x2 - c[2];
-              float rest0 = c[3] + c[6] * q0;
-              rest0 = rest0 + c[7] * q1;
-              rest0 = rest0 + c[8] * q2;
-              float rest1 = c[4] + c[9] * q0;
-              rest1 = rest1 + c[10] * q1;
-              rest1 = rest1 + c[11] * q2;
-              float rest2 = c[5] + c[12] * q0;
-              rest2 = rest2 + c[13] * q1;
-              rest2 = rest2 + c[14] * q2;
-              const bool ok3 = fabsf(rest0 - c[3]) <= ip_dx &&
-                               fabsf(rest1 - c[4]) <= ip_dx &&
-                               fabsf(rest2 - c[5]) <= ip_dx;
-              const float wgt = ok3 ? 1.0f / sqrtf(fmaxf(best, 1e-16f)) : 0.f;
-              m0 = m0 + wgt * rest0;
-              m1 = m1 + wgt * rest1;
-              m2 = m2 + wgt * rest2;
-              wsum = wsum + wgt;
+        // sigma of this sample; (cr, cg, cb) is this sample's color,
+        // or with PAIRED the pending sample's
+        clk.mark();
+        float sigma, cr, cg, cb;
+        if constexpr (BF16 && PAIRED) {
+          mma_field_paired<N>(swm, wtile, head_prev, xm0, xm1, xm2,
+                              bound, sigma, cr, cg, cb);
+        } else if constexpr (BF16) {
+          mma_field<N>(swm, wtile, xm0, xm1, xm2, bound, sigma, cr, cg,
+                       cb);
+        } else if constexpr (kWide) {
+          // rays [128 h, 128 h + 128) own the samples of pass h
+          for (int h = 0; h < 2; ++h) {
+            field_points_wide<N>(sw, buf, buf + N::kWd * kWidePoints, pw,
+                                 r / kWidePoints == h, xm0, xm1, xm2,
+                                 bound, sh, sigma, cr, cg, cb);
+          }
+        } else if constexpr (PAIRED) {
+          encode<false, N::kNf>(xm0, xm1, xm2, bound, colS, kT2);
+          {
+            float c[N::kWd];
+            paired_layer<N::kEnc, 31, N::kWd>(
+                sw + N::off(0), sw + N::off(4), colS, colC, kT2, c);
+#pragma unroll
+            for (int j = 0; j < N::kWd; ++j) {
+              colC[j * kT2] = fmaxf(c[j], 0.f);
             }
-            found = wsum > 0.f;
-            const float invw = 1.0f / fmaxf(wsum, 1e-30f);
-            if (found) {
-              xm0 = m0 * invw;
-              xm1 = m1 * invw;
-              xm2 = m2 * invw;
-            }
-            if constexpr (CUT) {
-              // outside the cut box the static scene renders unbent
-              const bool in_cut = x0 > box[0] && x0 < box[1] &&
-                                  x1 > box[2] && x1 < box[3] &&
-                                  x2 > box[4] && x2 < box[5];
-              if (!in_cut) {
-                found = true;
-                xm0 = x0;
-                xm1 = x1;
-                xm2 = x2;
-              }
+            paired_layer<N::kWd, N::kWd, N::kWd>(
+                sw + N::off(1), sw + N::off(5), colS, colC, kT2, c);
+#pragma unroll
+            for (int j = 0; j < N::kWd; ++j) {
+              colC[j * kT2] = fmaxf(c[j], 0.f);
             }
           }
+          float c4[4];
+          paired_layer<N::kWd, N::kWd, 4>(
+              sw + N::off(2), sw + N::off(6), colS, colC, kT2, c4);
+          float h4[16];
+          last<N::kWd, 16, 16>(sw + N::off(3), colS, kT2, h4);
+          sigma = expf(fminf(fmaxf(h4[0], -15.f), 15.f));
+          cr = sigmoidf(c4[0]);
+          cg = sigmoidf(c4[1]);
+          cb = sigmoidf(c4[2]);
+          // this sample's color input waits in the color column
+#pragma unroll
+          for (int i = 0; i < 16; ++i) colC[i * kT2] = sh[i];
+#pragma unroll
+          for (int i = 0; i < 15; ++i) colC[(16 + i) * kT2] = h4[1 + i];
+        } else {
+          field_point(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
+                      cb);
+        }
+        clk.lap(3);
 
-          // sigma of this sample; (cr, cg, cb) is this sample's color, or
-          // with PAIRED the pending sample's
-          float sigma, cr, cg, cb;
-          if constexpr (BF16 && PAIRED) {
-            mma_field_paired<N>(swm, wtile, head_prev, xm0, xm1, xm2, bound,
-                                sigma, cr, cg, cb);
-          } else if constexpr (BF16) {
-            mma_field<N>(swm, wtile, xm0, xm1, xm2, bound, sigma, cr, cg,
-                         cb);
-          } else if constexpr (kWide) {
-            // rays [128 h, 128 h + 128) own the samples of pass h
-            for (int h = 0; h < 2; ++h) {
-              field_points_wide<N>(sw, buf, buf + N::kWd * kWidePoints, pw,
-                                   r / kWidePoints == h, xm0, xm1, xm2, bound,
-                                   sh, sigma, cr, cg, cb);
-            }
-          } else if constexpr (PAIRED) {
-            encode<false, N::kNf>(xm0, xm1, xm2, bound, colS, kT2);
-            {
-              float c[N::kWd];
-              paired_layer<N::kEnc, 31, N::kWd>(
-                  sw + N::off(0), sw + N::off(4), colS, colC, kT2, c);
-#pragma unroll
-              for (int j = 0; j < N::kWd; ++j) {
-                colC[j * kT2] = fmaxf(c[j], 0.f);
-              }
-              paired_layer<N::kWd, N::kWd, N::kWd>(
-                  sw + N::off(1), sw + N::off(5), colS, colC, kT2, c);
-#pragma unroll
-              for (int j = 0; j < N::kWd; ++j) {
-                colC[j * kT2] = fmaxf(c[j], 0.f);
-              }
-            }
-            float c4[4];
-            paired_layer<N::kWd, N::kWd, 4>(
-                sw + N::off(2), sw + N::off(6), colS, colC, kT2, c4);
-            float h4[16];
-            last<N::kWd, 16, 16>(sw + N::off(3), colS, kT2, h4);
-            sigma = expf(fminf(fmaxf(h4[0], -15.f), 15.f));
-            cr = sigmoidf(c4[0]);
-            cg = sigmoidf(c4[1]);
-            cb = sigmoidf(c4[2]);
-            // this sample's color input waits in the color column
-#pragma unroll
-            for (int i = 0; i < 16; ++i) colC[i * kT2] = sh[i];
-#pragma unroll
-            for (int i = 0; i < 15; ++i) colC[(16 + i) * kT2] = h4[1 + i];
-          } else {
-            field_point(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
-                        cb);
+        // transmittance composite with the carried optical depth
+        bool found = true;
+        if constexpr (DEFORMED) {
+          t = t0 + (((float)(s * Ks) + (float)k) + t_jit) * dt_s;
+          found = xs[(4 * kk + 3) * kT2 + r] != 0.f;
+        }
+        const bool vmask = found && (t >= near) && (t <= far) && thit;
+        const float sg = vmask ? sigma * dscale : 0.f;
+        const float tau = sg * dt_s;
+        const float incl = seg_incl + tau;
+        const float c_before = cum + (incl - tau);
+        seg_incl = incl;
+        const float T_prev = expf(-c_before);
+        const float w = (T_prev >= T_thresh)
+                            ? (1.0f - expf(-tau)) * T_prev
+                            : 0.f;
+        if constexpr (PAIRED) {
+          // the pending sample's rgb against its stored weight (zero
+          // the first time through); on a segment's first pass that
+          // sample was the previous executed segment's last, so its
+          // sums close
+          const float wp = pending ? w_prev : 0.f;
+          pr = pr + wp * cr;
+          pg = pg + wp * cg;
+          pb = pb + wp * cb;
+          if (k == 0) {
+            acc_r += pr;
+            acc_g += pg;
+            acc_b += pb;
+            pr = pg = pb = 0.f;
           }
-
-          // transmittance composite with the carried optical depth
-          const bool vmask = found && (t >= near) && (t <= far) && thit;
-          const float sg = vmask ? sigma * dscale : 0.f;
-          const float tau = sg * dt_s;
-          const float incl = seg_incl + tau;
-          const float c_before = cum + (incl - tau);
-          seg_incl = incl;
-          const float T_prev = expf(-c_before);
-          const float w = (T_prev >= T_thresh) ? (1.0f - expf(-tau)) * T_prev
-                                               : 0.f;
-          if constexpr (PAIRED) {
-            // the pending sample's rgb against its stored weight (zero the
-            // first time through); on a segment's first pass that sample
-            // was the previous executed segment's last, so its sums close
-            const float wp = pending ? w_prev : 0.f;
-            pr = pr + wp * cr;
-            pg = pg + wp * cg;
-            pb = pb + wp * cb;
-            if (k == 0) {
-              acc_r += pr;
-              acc_g += pg;
-              acc_b += pb;
-              pr = pg = pb = 0.f;
+          w_prev = w;
+          pending = true;
+        } else {
+          pr = pr + w * cr;
+          pg = pg + w * cg;
+          pb = pb + w * cb;
+        }
+        pd = pd + w * t;
+        pwt = pwt + w;
+        clk.lap(4);
+      };
+      if constexpr (DEFORMED) {
+        // one loop index, so that little stays live across the MLP; a pass
+        // bends sub-segment sb's samples [c0, c0 + nk) at its first one
+        for (int k = 0; k < Ks; ++k) {
+          const int sb = k / Ksb;
+          const int kk = (k - sb * Ksb) % kKsbMax;
+          if (kk == 0) {
+            clk.mark();
+            const int c0 = k - sb * Ksb;
+            const int nk = min(kKsbMax, Ksb - c0);
+            const Window w = window_of(bs, s * Ks + sb * Ksb, Ksb, halo, K,
+                                       Wn, P);
+            if (c0 == 0) {
+              dropped += max(w.hi - w.lo - Wn, 0);
+              mbar_wait(bar, phase[r] & 1);
+              ++phase[r];
             }
-            w_prev = w;
-            pending = true;
-          } else {
-            pr = pr + w * cr;
-            pg = pg + w * cg;
-            pb = pb + w * cb;
+            clk.lap(0);
+            const float seg0 = (float)(s * Ks);
+            const int r0 = max(w.lo - w.wa, 0);
+            const int r1 = min(w.hi - w.wa, Wn);
+            if (num_seek == 1) {
+              bend_samples<1, CUT>(win, xs, r0, r1, nk, t0, seg0, k, t_jit,
+                                   dt_s, o, dv, ip_dx, box, clk);
+            } else if (num_seek == 2) {
+              bend_samples<2, CUT>(win, xs, r0, r1, nk, t0, seg0, k, t_jit,
+                                   dt_s, o, dv, ip_dx, box, clk);
+            } else {
+              bend_samples<3, CUT>(win, xs, r0, r1, nk, t0, seg0, k, t_jit,
+                                   dt_s, o, dv, ip_dx, box, clk);
+            }
+            if (c0 + nk == Ksb) {
+              // every thread is done with the window: the next executed
+              // sub-segment's copies in while this one's samples run
+              __syncthreads();
+              const int sn =
+                  sb + 1 < n_sub
+                      ? s
+                      : next_segment<kSkip>(s + 1, n_seg, bs, Ks, K, halo);
+              if (r == 0 && sn < n_seg) {
+                const int kn =
+                    sn * Ks + (sb + 1 < n_sub ? (sb + 1) * Ksb : 0);
+                const Window wn = window_of(bs, kn, Ksb, halo, K, Wn, P);
+                window_issue(win, bar, cand + ((size_t)a * P + wn.wa) * 16,
+                             Wn);
+              }
+              clk.lap(0);
+            }
           }
-          pd = pd + w * t;
-          pwt = pwt + w;
+          sample(k, kk);
+        }
+      } else {
+        // the static march, a sub-segment at a time (a single loop costs
+        // its f32 Wd 64 instantiation a spill)
+        for (int sb = 0; sb < n_sub; ++sb) {
+          for (int kk = 0; kk < Ksb; ++kk) sample(sb * Ksb + kk, kk);
         }
       }
+      clk.mark();
       if constexpr (!PAIRED) {
         acc_r += pr;
         acc_g += pg;
@@ -448,6 +709,19 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
       cum += seg_incl;
       // tile-wide early exit: alive while any ray's T is still >= T_thresh
       alive = __syncthreads_or(expf(-cum) >= T_thresh) != 0;
+      clk.lap(4);
+      const int s_next = next_segment<kSkip>(s + 1, n_seg, bs, Ks, K, halo);
+      if constexpr (DEFORMED) {
+        if (!alive && s_next < n_seg) {
+          // the early exit drops the window issued for segment s_next: it
+          // lands before the block exits or the buffer takes the next
+          // tile's. Only the issuing thread waits (the others count the
+          // phase), so that no thread falls a phase behind the next issue.
+          if (r == 0) mbar_wait(bar, phase[r] & 1);
+          ++phase[r];
+        }
+      }
+      s = s_next;
     }
     if constexpr (PAIRED) {
       if (pending) {
@@ -479,25 +753,30 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
     o_t[5 * kT2 + r] = (float)dropped;
     o_t[6 * kT2 + r] = 0.f;
     o_t[7 * kT2 + r] = 0.f;
+    clk.tile_end(cyc, a);
   }
 }
 
 // The dynamic shared memory of one launch at window Wn: the MLP's, and in
-// the bending modes the candidate window.
+// the bending modes the bent positions and found flags of kKsbMax samples,
+// the phase counts, the window's mbarrier (16 bytes, keeping the window
+// 16-byte aligned) and the candidate window.
 template <bool BF16, bool DEFORMED, class N>
 size_t launch_smem(int Wn) {
   return mlp_bytes<BF16, N>() +
-         (DEFORMED ? (size_t)Wn * 16 * sizeof(float) : 0);
+         (DEFORMED ? ((size_t)Wn * 16 + kKsbMax * 4 * kT2 + kT2) * 4 + 16
+                   : 0);
 }
 
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
-          class N>
+          class N, bool TIMED = false>
 cudaError_t launch(const float* tile_sc, const int* bin_start,
                    const float* params, const float* dirs, const float* cand,
                    const float* pw, float* out, int A, int B, int BS, int P,
                    int K, int Ks, int Ksb, int Wn, int num_seek, float bound,
-                   cudaStream_t stream) {
-  auto kern = render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N>;
+                   long long* cyc, cudaStream_t stream) {
+  auto kern =
+      render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>;
   const size_t smem = launch_smem<BF16, DEFORMED, N>(Wn);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -507,7 +786,7 @@ cudaError_t launch(const float* tile_sc, const int* bin_start,
     kern<<<(A + B - 1) / B, kT2, smem, stream>>>(tile_sc, bin_start, params,
                                                  dirs, cand, pw, out, A, B,
                                                  BS, P, K, Ks, Ksb, Wn,
-                                                 num_seek, bound);
+                                                 num_seek, bound, cyc);
   }
   return cudaGetLastError();
 }
@@ -515,9 +794,10 @@ cudaError_t launch(const float* tile_sc, const int* bin_start,
 // One instantiation's resident blocks per SM at the dynamic shared memory
 // its launch asks for at window Wn (both written; nothing runs).
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
-          class N>
+          class N, bool TIMED = false>
 cudaError_t occupancy(int Wn, int* resident, int* smem_bytes) {
-  auto kern = render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N>;
+  auto kern =
+      render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>;
   const size_t smem = launch_smem<BF16, DEFORMED, N>(Wn);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -530,7 +810,7 @@ cudaError_t occupancy(int Wn, int* resident, int* smem_bytes) {
 using LaunchFn = cudaError_t (*)(const float*, const int*, const float*,
                                  const float*, const float*, const float*,
                                  float*, int, int, int, int, int, int, int,
-                                 int, int, float, cudaStream_t);
+                                 int, int, float, long long*, cudaStream_t);
 using OccupancyFn = cudaError_t (*)(int, int*, int*);
 
 }  // namespace pienerf

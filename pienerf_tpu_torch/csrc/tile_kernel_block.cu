@@ -56,7 +56,7 @@ extern "C" int pienerf_render_tiles_block(const void* tile_sc, const void* bin_s
       static_cast<const float*>(params), static_cast<const float*>(dirs),
       static_cast<const float*>(cand), static_cast<const float*>(pw),
       static_cast<float*>(out), A, block_tiles, BS, P, K, Ks, Ksb, Wn,
-      num_seek, bound, static_cast<cudaStream_t>(stream));
+      num_seek, bound, nullptr, static_cast<cudaStream_t>(stream));
   return (int)err;
 }
 

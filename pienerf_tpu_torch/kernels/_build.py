@@ -58,8 +58,9 @@ def lib_path(name: str) -> str:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Build every missing library among ``names`` (default: all), one
     nvcc each, all started together. Returns per library its path, whether
-    it was built now, the seconds it took and the compiler's log (ptxas
-    register and spill report)."""
+    it was built now, the seconds its nvcc took (from the common start to
+    its own end) and the compiler's log (ptxas register and spill
+    report)."""
     names = list(names or SOURCES)
     out_dir = os.path.join(BUILD_ROOT, _key())
     os.makedirs(out_dir, exist_ok=True)
@@ -75,20 +76,28 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp,
                                         os.path.join(CSRC, SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path)
-    for name, (proc, tmp, path) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            for p, _, _ in procs.values():
-                if p.poll() is None:
+        # the log goes to a file, so that each nvcc's end can be polled
+        with open(tmp + ".log", "w") as log:
+            procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT),
+                           tmp, path)
+    while procs:
+        for name, (proc, tmp, path) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[name]
+            with open(tmp + ".log") as f:
+                log = f.read()
+            os.remove(tmp + ".log")
+            if proc.returncode != 0:
+                for p, _, _ in procs.values():
                     p.kill()
                     p.wait()
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-        os.replace(tmp, path)
-        report[name] = {"path": path, "built": True,
-                        "seconds": time.perf_counter() - t0, "log": log}
+                raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+            os.replace(tmp, path)
+            report[name] = {"path": path, "built": True,
+                            "seconds": time.perf_counter() - t0, "log": log}
+        time.sleep(0.05)
     return report
 
 

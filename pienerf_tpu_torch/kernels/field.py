@@ -184,6 +184,15 @@ def check_kernel_spec(spec: NetworkSpec, packed_w: torch.Tensor,
         f"[7, 128, 128]; got sigma {sd}, color {cd}, pack {shape}")
 
 
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary, as a bulk copy's
+    address and a 16-byte vector load need (the fetch kernels' rows, the
+    tile kernel's candidate windows)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary "
+                         f"(data_ptr {t.data_ptr():#x})")
+
+
 def check_arg(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """Raise unless a kernel argument has the device, dtype, shape and
     contiguity the kernel takes."""

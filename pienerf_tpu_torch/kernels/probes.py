@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from pienerf_tpu_torch.kernels import _build
-from pienerf_tpu_torch.kernels.field import check_arg
+from pienerf_tpu_torch.kernels.field import check_aligned, check_arg
 
 ROW = 128            # floats per table row
 FETCH_BLOCK = 512    # indices per thread block (all fetches but take)
@@ -28,15 +28,6 @@ FETCHES = ("onehot", "dma", "take", "dynslice")
 def fetch_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b] = table[idx[b]]."""
     return table[idx.long()]
-
-
-def check_aligned(t: torch.Tensor, name: str) -> None:
-    """Raise unless ``t`` starts on a 16-byte boundary: the fetch kernels
-    move rows as 16-byte vectors, and a bulk copy (``dma``) takes only
-    16-byte-aligned addresses."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary "
-                         f"(data_ptr {t.data_ptr():#x})")
 
 
 def _fetch(which: str, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@ Both give the default schedule's output bit for bit. ``render_tiles``
 launches the kernel for CUDA tensors and takes ``render_tiles_plain`` only
 for CPU tensors. Every bf16 instantiation runs the field MLP on the tensor
 cores (``csrc/mma_mlp.cuh``), every f32 one on the CUDA cores.
+``render_tiles_timed`` launches the kernel's timed instantiation (CUDA
+only), which also returns where each tile's clock cycles went.
 """
 
 from __future__ import annotations
@@ -24,16 +26,20 @@ from typing import Optional, Tuple
 import torch
 
 from pienerf_tpu_torch.kernels import _build
-from pienerf_tpu_torch.kernels.field import (WIDTHS, check_arg,
-                                             check_kernel_spec, encode_rows,
-                                             is_paired, mlp_paired_plain,
-                                             mlp_plain)
+from pienerf_tpu_torch.kernels.field import (WIDTHS, check_aligned,
+                                             check_arg, check_kernel_spec,
+                                             encode_rows, is_paired,
+                                             mlp_paired_plain, mlp_plain)
 from pienerf_tpu_torch.models.network import NetworkSpec, torch_dtype
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
 
 T2 = 256          # rays per 16x16 tile
 PACK_FAST = 16    # candidate rows: p_def(3) p_ori(3) F^-1(9) valid(1)
 MODES = ("deformed", "static", "cut")
+# the columns of render_tiles_timed's cycles: the phases, then the tile's
+# total cycles and its start and end on the global timer (ns)
+SPLIT_PHASES = ("staging", "scan", "blend", "mlp", "composite")
+SPLIT_COLS = len(SPLIT_PHASES) + 3
 
 
 def mode_of(deformed: bool, cut: bool) -> str:
@@ -421,30 +427,87 @@ def render_tiles(
     pairing from the pack; ``block_tiles`` B > 1 renders B tiles per thread
     block, A padded to a multiple of B with inactive slots and the output
     cut back to A."""
-    A, P = cand.shape[0], cand.shape[1]
-    BS = bin_start.shape[1]
-    if P < Wn:
-        raise ValueError(f"candidate capacity {P} must be >= window {Wn}")
-    if BS < K + 4:
-        raise ValueError(f"bin_start width {BS} < K + 4")
-    if K % Ks or Ks % Ksb:
-        raise ValueError(f"K={K}, Ks={Ks}, Ksb={Ksb} must nest")
-    if not 1 <= num_seek <= 3:
-        raise ValueError(f"num_seek {num_seek} must be 1..3")
+    _check_shapes(cand, bin_start, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn,
+                  num_seek=num_seek, block_tiles=block_tiles)
     B = int(block_tiles)
-    if B < 1:
-        raise ValueError(f"block_tiles {block_tiles} must be >= 1")
     kw = dict(K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
               deformed=deformed, cut=cut)
     if tile_sc.device.type == "cpu":
         return render_tiles_plain(spec, packed_w, tile_sc, bin_start, params,
                                   dirs, cand, **kw, paired=paired,
                                   block_tiles=B)
-    dev = tile_sc.device
     mode = mode_of(deformed, cut)
     wd = check_kernel_spec(spec, packed_w, allow_paired=True)
     paired = _resolve_paired(spec, packed_w, paired)
-    A0 = A
+    # the paired and the block_tiles instantiations are libraries of their
+    # own (one nvcc each, side by side)
+    name = "tile_paired" if paired else "tile_block" if B > 1 else "tile"
+    out = _launch(name, "pienerf_render_" + name.replace("tile", "tiles"),
+                  spec, packed_w, tile_sc, bin_start, params, dirs, cand, B,
+                  paired, wd, None, **kw)
+    render_tiles.launches[launch_key(mode, wd, paired, B)] += 1
+    return out
+
+
+def render_tiles_timed(
+    spec: NetworkSpec,
+    packed_w: torch.Tensor,
+    tile_sc: torch.Tensor,
+    bin_start: torch.Tensor,
+    params: torch.Tensor,
+    dirs: torch.Tensor,
+    cand: torch.Tensor,
+    *, K: int, Ks: int, Ksb: int, Wn: int, num_seek: int,
+    cut: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tile kernel's timed instantiation (bf16, the default schedule,
+    deformed or cut mode, either width) on CUDA tensors -> (out, cycles).
+    ``out`` equals ``render_tiles``'s bit for bit; ``cycles`` [A, 8, 8]
+    int64 holds, per tile and warp, the clock64() cycles of the five
+    phases (window staging, scan, bend and blend, MLP, composite with the
+    segment's early exit), the tile's total cycles, and its start and end
+    on the global nanosecond timer; zeros for an inactive slot. A
+    measurement for ``chip_smoke.py``; it counts no launch."""
+    if tile_sc.device.type != "cuda":
+        raise ValueError("render_tiles_timed runs on CUDA tensors only")
+    if spec.compute_dtype != "bfloat16":
+        raise ValueError("render_tiles_timed is instantiated for bf16 only")
+    _check_shapes(cand, bin_start, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn,
+                  num_seek=num_seek, block_tiles=1)
+    wd = check_kernel_spec(spec, packed_w, allow_paired=False)
+    cycles = torch.zeros((tile_sc.shape[0], T2 // 32, SPLIT_COLS),
+                         dtype=torch.int64, device=tile_sc.device)
+    out = _launch("tile", "pienerf_render_tiles_timed", spec, packed_w,
+                  tile_sc, bin_start, params, dirs, cand, 1, False, wd,
+                  cycles, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
+                  deformed=True, cut=cut)
+    return out, cycles
+
+
+def _check_shapes(cand, bin_start, *, K, Ks, Ksb, Wn, num_seek,
+                  block_tiles):
+    """Raise on the sizes the kernel and its plain version refuse."""
+    if cand.shape[1] < Wn:
+        raise ValueError(f"candidate capacity {cand.shape[1]} must be >= "
+                         f"window {Wn}")
+    if bin_start.shape[1] < K + 4:
+        raise ValueError(f"bin_start width {bin_start.shape[1]} < K + 4")
+    if K % Ks or Ks % Ksb:
+        raise ValueError(f"K={K}, Ks={Ks}, Ksb={Ksb} must nest")
+    if not 1 <= num_seek <= 3:
+        raise ValueError(f"num_seek {num_seek} must be 1..3")
+    if int(block_tiles) < 1:
+        raise ValueError(f"block_tiles {block_tiles} must be >= 1")
+
+
+def _launch(lib_name, fn_name, spec, packed_w, tile_sc, bin_start, params,
+            dirs, cand, B, paired, wd, cycles, *, K, Ks, Ksb, Wn, num_seek,
+            deformed, cut):
+    """Check the arguments, pad A to a multiple of B and launch the C entry
+    ``fn_name`` of library ``lib_name`` -> out [A, 8, 256]."""
+    dev = tile_sc.device
+    A0 = tile_sc.shape[0]
+    P, BS = cand.shape[1], bin_start.shape[1]
     tile_sc, bin_start, dirs, cand = _pad_tiles(B, tile_sc, bin_start, dirs,
                                                 cand)
     A = tile_sc.shape[0]
@@ -457,24 +520,24 @@ def render_tiles(
             (packed_w, "packed_w", torch.float32,
              (4, 128, 128) if paired else (7, wd, wd))):
         check_arg(t, name, dtype, shape, dev)
+    # each sub-segment's window lands in shared memory by one bulk copy
+    check_aligned(cand, "cand")
     out = torch.empty((A, 8, T2), dtype=torch.float32, device=dev)
-    # the paired and the block_tiles instantiations are libraries of their
-    # own (one nvcc each, side by side)
-    name = "tile_paired" if paired else "tile_block" if B > 1 else "tile"
-    lib = _build.library(name)
-    fn = getattr(lib, "pienerf_render_" + name.replace("tile", "tiles"))
+    lib = _build.library(lib_name)
+    fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * (
+            2 if cycles is not None else 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+    extra = () if cycles is None else (cycles.data_ptr(),)
     rc = fn(tile_sc.data_ptr(), bin_start.data_ptr(), params.data_ptr(),
             dirs.data_ptr(), cand.data_ptr(), packed_w.data_ptr(),
             out.data_ptr(), A, B, BS, P, K, Ks, Ksb, Wn, num_seek,
             float(spec.bound), int(spec.compute_dtype == "bfloat16"),
-            int(deformed), int(cut), wd, stream)
-    _build.check(lib, rc, "render_tiles")
-    render_tiles.launches[launch_key(mode, wd, paired, B)] += 1
+            int(deformed), int(cut), wd, *extra, stream)
+    _build.check(lib, rc, fn_name)
     return out[:A0]
 
 

@@ -67,6 +67,7 @@ CUDA_RUNTIME_H = r"""
 #include <ucontext.h>
 #define PIENERF_EMU_MMA 1
 #define PIENERF_EMU_BULK 1
+#define PIENERF_EMU_CLOCK 1
 #define __global__
 #define __device__
 #define __host__
@@ -96,6 +97,10 @@ inline uint32_t __float_as_uint(float f) {
   return u;
 }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+// the cycle counter and the global timer: one tick a read
+inline long long emu_ticks = 0;
+inline long long clock64() { return ++emu_ticks; }
+inline long long emu_globaltimer() { return ++emu_ticks; }
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 // Blocks run in turn. Each CUDA thread of a block is a fiber on the calling
@@ -559,6 +564,471 @@ extern "C" int bulk_store_overwrite(const float* row, float* out,
 """
 
 
+# The tile kernel as it was before the one-pass window scan: per sample,
+# num_seek argmin passes over the staged window's rows (each row tested
+# against [rlo, rhi), its validity and the rows already taken), the window
+# staged by scalar copies between two barriers. The kernel must equal it
+# bit for bit: the same rows in the same order, the same sums.
+TILE_REF_KERNEL = r"""
+template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
+          class N>
+__global__ void __launch_bounds__(kT2)
+render_tiles_ref(const float* __restrict__ tile_sc,
+                    const int* __restrict__ bin_start,
+                    const float* __restrict__ params,
+                    const float* __restrict__ dirs,
+                    const float* __restrict__ cand,
+                    const float* __restrict__ pw, float* __restrict__ out,
+                    int A, int B, int BS, int P, int K, int Ks, int Ksb,
+                    int Wn, int num_seek, float bound) {
+  constexpr bool kWide = N::kWd == 128;
+  static_assert(!PAIRED || !kWide, "only the 64-wide net pairs");
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);      // weights
+  [[maybe_unused]] float* buf =                     // f32 activations
+      sw + (kWide ? N::kWd * N::kWd : N::wfloats());
+  // bf16: the weights in fragment order, then one staging tile a warp
+  [[maybe_unused]] uint2* swm = reinterpret_cast<uint2*>(smem4);
+  [[maybe_unused]] uint32_t* wtile = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<char*>(smem4) + N::frag_bytes() +
+      (threadIdx.x >> 5) * kWarpTileBytes);
+  float* win = reinterpret_cast<float*>(  // [Wn, 16], bending modes only
+      reinterpret_cast<char*>(smem4) + mlp_bytes<BF16, N>());
+  const int r = threadIdx.x;
+
+  const float o[3] = {params[0], params[1], params[2]};
+  const float T_thresh = params[9];
+  const float dscale = params[10];
+  const float ip_dx = params[11];
+  const float min_near = params[12];
+  const float t_jit = params[19];
+  const float reach = params[20];
+  float box[6];                         // cut box (x, y, z min/max), CUT only
+#pragma unroll
+  for (int i = 0; i < 6; ++i) box[i] = CUT ? params[13 + i] : 0.f;
+
+  bool staged = false;                  // Wd 64: the weights, once per block
+  // without MULTI the trip count is a compile-time 1: a loop whose count
+  // the compiler cannot see costs the static mode 19% (Wd 64) to 48%
+  // (Wd 128) of its time, so one tile per block keeps its own
+  // instantiation
+  const int n_b = MULTI ? B : 1;
+  for (int b = 0; b < n_b; ++b) {
+    const int a = blockIdx.x * n_b + b;
+    if (a >= A) break;
+    float* o_t = out + (size_t)a * 8 * kT2;
+    const float* sc = tile_sc + (size_t)a * 8;
+    const int* bs = bin_start + (size_t)a * BS;
+    const float t0 = sc[0];
+    const float t1 = sc[1];
+    if (!(sc[2] > 0.f)) {                            // inactive slot
+      for (int row = 0; row < 8; ++row) o_t[row * kT2 + r] = 0.f;
+      continue;
+    }
+    if constexpr (BF16 || !kWide) {
+      if (!staged) {                    // tile-uniform, so block-uniform
+        if constexpr (BF16 && PAIRED) {
+          stage_mma_weights_paired<N>(swm, pw);
+        } else if constexpr (BF16) {
+          stage_mma_weights<N>(swm, pw);
+        } else if constexpr (PAIRED) {
+          stage_weights_paired<N>(sw, pw);
+        } else {
+          stage_weights<N>(sw, pw);
+        }
+        __syncthreads();
+        staged = true;
+      }
+    }
+
+    const float* dr = dirs + (size_t)a * 8 * kT2;
+    const float dv[3] = {dr[r], dr[kT2 + r], dr[2 * kT2 + r]};
+
+    // per-ray slab near/far against the march bbox
+    const float BIG = 3.4e38f;
+    float near = -BIG, far = BIG;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float inv = 1.0f / dv[i];
+      const float ta = (params[3 + i] - o[i]) * inv;
+      const float tb = (params[6 + i] - o[i]) * inv;
+      near = jmax(near, jmin(ta, tb));
+      far = jmin(far, jmax(ta, tb));
+    }
+    const bool thit = near <= far;
+    near = jmax(near, min_near);
+
+    const float dt_s = (t1 - t0) / (float)K;
+    // per-tile halo: the window covers the bend reach at this tile's bin
+    // width
+    const int halo =
+        DEFORMED ? max((int)ceilf(reach / jmax(dt_s, 1e-9f)), 1) : 0;
+
+    float sh[16];
+    sh4<BF16>(dv[0], dv[1], dv[2], sh);
+    if constexpr (BF16) mma_stage_sh(wtile + (r & 31) * kTileWords, sh);
+
+    // paired: this thread's sigma and color columns; the color column
+    // starts as SH(d) || zero geo features (the reference zeroes its
+    // scratch: the first pass's color half runs on it, masked by the
+    // pending flag)
+    [[maybe_unused]] float* colS = buf + r;
+    [[maybe_unused]] float* colC = buf + N::kWd * kT2 + r;
+    [[maybe_unused]] float w_prev = 0.f;     // the pending sample's weight
+    [[maybe_unused]] bool pending = false;   // block-uniform
+    // bf16: the pending sample's sigma head, per row tile of the warp
+    [[maybe_unused]] uint32_t head_prev[2][4] = {};
+    if constexpr (PAIRED && !BF16) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) colC[i * kT2] = sh[i];
+#pragma unroll
+      for (int i = 0; i < 15; ++i) colC[(16 + i) * kT2] = 0.f;
+    }
+
+    float cum = 0.f;
+    int dropped = 0;
+    float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, acc_w = 0.f;
+    // the open segment's rgb sums: the executing segment's, or with PAIRED
+    // the one the pending sample belongs to
+    float pr = 0.f, pg = 0.f, pb = 0.f;
+    const int n_seg = K / Ks;
+    bool alive = true;
+    for (int s = 0; s < n_seg && alive; ++s) {
+      if constexpr (DEFORMED && !CUT) {
+        // whole-segment skip: no candidate in the segment's halo window
+        // means every sample is unfound (sigma 0); tile-uniform
+        const int slo_i = s * Ks + 1 - halo;
+        const int shi_i = s * Ks + Ks + 1 + halo;
+        const int slo = slo_i <= 0 ? 0 : bs[slo_i];
+        const int shi = shi_i >= K + 2 ? bs[K + 3] : bs[shi_i];
+        if (shi - slo <= 0) continue;
+      }
+
+      float seg_incl = 0.f;
+      float pd = 0.f, pwt = 0.f;
+      for (int sb = 0; sb < Ks / Ksb; ++sb) {
+        int rlo = 0, rhi = 0;
+        if constexpr (DEFORMED) {
+          const int k0 = s * Ks + sb * Ksb;
+          const int lo_i = k0 + 1 - halo;
+          const int hi_i = k0 + Ksb + 1 + halo;
+          const int lo = lo_i <= 0 ? 0 : bs[lo_i];
+          const int hi = hi_i >= K + 2 ? bs[K + 3] : bs[hi_i];
+          // center the kept rows on the sub-segment's own bins when
+          // [lo, hi) exceeds Wn; the overflow is counted
+          const int own_lo = bs[k0 + 1];
+          const int own_hi = bs[k0 + Ksb + 1];
+          int wa = own_lo - floordiv(Wn - (own_hi - own_lo), 2);
+          wa = min(max(wa, lo), max(lo, hi - Wn));
+          wa = min(max(wa, 0), P - Wn);
+          dropped += max(hi - lo - Wn, 0);
+
+          __syncthreads();             // previous window's readers are done
+          const float* src = cand + ((size_t)a * P + wa) * 16;
+          for (int e = r; e < Wn * 16; e += kT2) win[e] = src[e];
+          __syncthreads();
+          rlo = lo - wa;
+          rhi = hi - wa;
+        }
+
+        for (int kk = 0; kk < Ksb; ++kk) {
+          const int k = sb * Ksb + kk;
+          const float t = t0 + (((float)(s * Ks) + (float)k) + t_jit) * dt_s;
+          const float x0 = o[0] + t * dv[0];
+          const float x1 = o[1] + t * dv[1];
+          const float x2 = o[2] + t * dv[2];
+
+          bool found = true;
+          float xm0 = x0, xm1 = x1, xm2 = x2;
+          if constexpr (DEFORMED) {
+            // num_seek rounds: nearest remaining candidate -> single
+            // Newton step p_rest = p_ori + F^-1 (x - p_def) -> per-axis
+            // ip_dx reject -> inverse-distance blend
+            int j0 = -1, j1 = -1;
+            float m0 = 0.f, m1 = 0.f, m2 = 0.f, wsum = 0.f;
+            for (int q = 0; q < num_seek; ++q) {
+              float best = INFINITY;
+              int jb = 0;
+              for (int row = 0; row < Wn; ++row) {
+                const float* cw = win + row * 16;
+                if (row < rlo || row >= rhi || !(cw[15] > 0.f) ||
+                    row == j0 || row == j1)
+                  continue;
+                const float e0 = x0 - cw[0];
+                const float e1 = x1 - cw[1];
+                const float e2 = x2 - cw[2];
+                float dd = e0 * e0;
+                dd = dd + e1 * e1;
+                dd = dd + e2 * e2;
+                if (dd < best) {
+                  best = dd;
+                  jb = row;
+                }
+              }
+              if (q == 0) j0 = jb; else if (q == 1) j1 = jb;
+              if (!(best < INFINITY)) continue;      // nothing left: weight 0
+              const float* c = win + jb * 16;
+              const float q0 = x0 - c[0];
+              const float q1 = x1 - c[1];
+              const float q2 = x2 - c[2];
+              float rest0 = c[3] + c[6] * q0;
+              rest0 = rest0 + c[7] * q1;
+              rest0 = rest0 + c[8] * q2;
+              float rest1 = c[4] + c[9] * q0;
+              rest1 = rest1 + c[10] * q1;
+              rest1 = rest1 + c[11] * q2;
+              float rest2 = c[5] + c[12] * q0;
+              rest2 = rest2 + c[13] * q1;
+              rest2 = rest2 + c[14] * q2;
+              const bool ok3 = fabsf(rest0 - c[3]) <= ip_dx &&
+                               fabsf(rest1 - c[4]) <= ip_dx &&
+                               fabsf(rest2 - c[5]) <= ip_dx;
+              const float wgt = ok3 ? 1.0f / sqrtf(fmaxf(best, 1e-16f)) : 0.f;
+              m0 = m0 + wgt * rest0;
+              m1 = m1 + wgt * rest1;
+              m2 = m2 + wgt * rest2;
+              wsum = wsum + wgt;
+            }
+            found = wsum > 0.f;
+            const float invw = 1.0f / fmaxf(wsum, 1e-30f);
+            if (found) {
+              xm0 = m0 * invw;
+              xm1 = m1 * invw;
+              xm2 = m2 * invw;
+            }
+            if constexpr (CUT) {
+              // outside the cut box the static scene renders unbent
+              const bool in_cut = x0 > box[0] && x0 < box[1] &&
+                                  x1 > box[2] && x1 < box[3] &&
+                                  x2 > box[4] && x2 < box[5];
+              if (!in_cut) {
+                found = true;
+                xm0 = x0;
+                xm1 = x1;
+                xm2 = x2;
+              }
+            }
+          }
+
+          // sigma of this sample; (cr, cg, cb) is this sample's color, or
+          // with PAIRED the pending sample's
+          float sigma, cr, cg, cb;
+          if constexpr (BF16 && PAIRED) {
+            mma_field_paired<N>(swm, wtile, head_prev, xm0, xm1, xm2, bound,
+                                sigma, cr, cg, cb);
+          } else if constexpr (BF16) {
+            mma_field<N>(swm, wtile, xm0, xm1, xm2, bound, sigma, cr, cg,
+                         cb);
+          } else if constexpr (kWide) {
+            // rays [128 h, 128 h + 128) own the samples of pass h
+            for (int h = 0; h < 2; ++h) {
+              field_points_wide<N>(sw, buf, buf + N::kWd * kWidePoints, pw,
+                                   r / kWidePoints == h, xm0, xm1, xm2, bound,
+                                   sh, sigma, cr, cg, cb);
+            }
+          } else if constexpr (PAIRED) {
+            encode<false, N::kNf>(xm0, xm1, xm2, bound, colS, kT2);
+            {
+              float c[N::kWd];
+              paired_layer<N::kEnc, 31, N::kWd>(
+                  sw + N::off(0), sw + N::off(4), colS, colC, kT2, c);
+#pragma unroll
+              for (int j = 0; j < N::kWd; ++j) {
+                colC[j * kT2] = fmaxf(c[j], 0.f);
+              }
+              paired_layer<N::kWd, N::kWd, N::kWd>(
+                  sw + N::off(1), sw + N::off(5), colS, colC, kT2, c);
+#pragma unroll
+              for (int j = 0; j < N::kWd; ++j) {
+                colC[j * kT2] = fmaxf(c[j], 0.f);
+              }
+            }
+            float c4[4];
+            paired_layer<N::kWd, N::kWd, 4>(
+                sw + N::off(2), sw + N::off(6), colS, colC, kT2, c4);
+            float h4[16];
+            last<N::kWd, 16, 16>(sw + N::off(3), colS, kT2, h4);
+            sigma = expf(fminf(fmaxf(h4[0], -15.f), 15.f));
+            cr = sigmoidf(c4[0]);
+            cg = sigmoidf(c4[1]);
+            cb = sigmoidf(c4[2]);
+            // this sample's color input waits in the color column
+#pragma unroll
+            for (int i = 0; i < 16; ++i) colC[i * kT2] = sh[i];
+#pragma unroll
+            for (int i = 0; i < 15; ++i) colC[(16 + i) * kT2] = h4[1 + i];
+          } else {
+            field_point(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
+                        cb);
+          }
+
+          // transmittance composite with the carried optical depth
+          const bool vmask = found && (t >= near) && (t <= far) && thit;
+          const float sg = vmask ? sigma * dscale : 0.f;
+          const float tau = sg * dt_s;
+          const float incl = seg_incl + tau;
+          const float c_before = cum + (incl - tau);
+          seg_incl = incl;
+          const float T_prev = expf(-c_before);
+          const float w = (T_prev >= T_thresh) ? (1.0f - expf(-tau)) * T_prev
+                                               : 0.f;
+          if constexpr (PAIRED) {
+            // the pending sample's rgb against its stored weight (zero the
+            // first time through); on a segment's first pass that sample
+            // was the previous executed segment's last, so its sums close
+            const float wp = pending ? w_prev : 0.f;
+            pr = pr + wp * cr;
+            pg = pg + wp * cg;
+            pb = pb + wp * cb;
+            if (k == 0) {
+              acc_r += pr;
+              acc_g += pg;
+              acc_b += pb;
+              pr = pg = pb = 0.f;
+            }
+            w_prev = w;
+            pending = true;
+          } else {
+            pr = pr + w * cr;
+            pg = pg + w * cg;
+            pb = pb + w * cb;
+          }
+          pd = pd + w * t;
+          pwt = pwt + w;
+        }
+      }
+      if constexpr (!PAIRED) {
+        acc_r += pr;
+        acc_g += pg;
+        acc_b += pb;
+        pr = pg = pb = 0.f;
+      }
+      acc_d += pd;
+      acc_w += pwt;
+      cum += seg_incl;
+      // tile-wide early exit: alive while any ray's T is still >= T_thresh
+      alive = __syncthreads_or(expf(-cum) >= T_thresh) != 0;
+    }
+    if constexpr (PAIRED) {
+      if (pending) {
+        // drain: the last pending sample's color chain, closing the last
+        // executed segment's rgb sums
+        float c3[3];
+        if constexpr (BF16) {
+          mma_color_drain<N>(swm, wtile, head_prev, c3[0], c3[1], c3[2]);
+        } else {
+          hidden<31, N::kWd>(sw + N::off(4), colC, colS, kT2);
+          hidden<N::kWd, N::kWd>(sw + N::off(5), colS, colC, kT2);
+          last<N::kWd, 4, 3>(sw + N::off(6), colC, kT2, c3);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) c3[i] = sigmoidf(c3[i]);
+        }
+        pr = pr + w_prev * c3[0];
+        pg = pg + w_prev * c3[1];
+        pb = pb + w_prev * c3[2];
+        acc_r += pr;
+        acc_g += pg;
+        acc_b += pb;
+      }
+    }
+    o_t[0 * kT2 + r] = acc_r;
+    o_t[1 * kT2 + r] = acc_g;
+    o_t[2 * kT2 + r] = acc_b;
+    o_t[3 * kT2 + r] = acc_d;
+    o_t[4 * kT2 + r] = acc_w;
+    o_t[5 * kT2 + r] = (float)dropped;
+    o_t[6 * kT2 + r] = 0.f;
+    o_t[7 * kT2 + r] = 0.f;
+  }
+}
+"""
+
+TILE_REF_CU = r"""
+#include "tile_kernel.cuh"
+namespace pienerf {
+""" + TILE_REF_KERNEL + r"""
+template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
+          class N>
+cudaError_t ref_launch(const float* tile_sc, const int* bin_start,
+                       const float* params, const float* dirs,
+                       const float* cand, const float* pw, float* out, int A,
+                       int B, int BS, int P, int K, int Ks, int Ksb, int Wn,
+                       int num_seek, float bound) {
+  auto kern = render_tiles_ref<BF16, DEFORMED, CUT, PAIRED, MULTI, N>;
+  const size_t smem = mlp_bytes<BF16, N>() +
+                      (DEFORMED ? (size_t)Wn * 16 * sizeof(float) : 0);
+  cudaStream_t st = nullptr;
+  kern<<<(A + B - 1) / B, kT2, smem, st>>>(tile_sc, bin_start, params, dirs,
+                                          cand, pw, out, A, B, BS, P, K, Ks,
+                                          Ksb, Wn, num_seek, bound);
+  return cudaGetLastError();
+}
+using RefFn = cudaError_t (*)(const float*, const int*, const float*,
+                              const float*, const float*, const float*,
+                              float*, int, int, int, int, int, int, int, int,
+                              int, float);
+// [paired][multi][bf16][mode: deformed, static, cut][wide]
+constexpr RefFn kRef[2][2][2][3][2] = {
+""" + ",\n".join(
+    "{" + ", ".join(
+        "{" + ", ".join(
+            "{" + ", ".join(
+                "{" + ", ".join(
+                    "nullptr" if (pa and w) else
+                    f"ref_launch<{'true' if bf else 'false'}, "
+                    f"{'false' if m == 1 else 'true'}, "
+                    f"{'true' if m == 2 else 'false'}, "
+                    f"{'true' if pa else 'false'}, "
+                    f"{'true' if mu else 'false'}, "
+                    f"{'Net128' if w else 'Net64'}>"
+                    for w in (0, 1)) + "}"
+                for m in range(3)) + "}"
+            for bf in (0, 1)) + "}"
+        for mu in (0, 1)) + "}"
+    for pa in (0, 1)) + r"""};
+}  // namespace pienerf
+extern "C" int tile_ref(const void* tile_sc, const void* bin_start,
+                        const void* params, const void* dirs,
+                        const void* cand, const void* pw, void* out, int A,
+                        int block_tiles, int BS, int P, int K, int Ks,
+                        int Ksb, int Wn, int num_seek, float bound, int bf16,
+                        int deformed, int cut, int wd, int paired) {
+  const int mode = !deformed ? 1 : (cut ? 2 : 0);
+  return (int)pienerf::kRef[paired][block_tiles > 1][bf16][mode][wd == 128](
+      static_cast<const float*>(tile_sc), static_cast<const int*>(bin_start),
+      static_cast<const float*>(params), static_cast<const float*>(dirs),
+      static_cast<const float*>(cand), static_cast<const float*>(pw),
+      static_cast<float*>(out), A, block_tiles, BS, P, K, Ks, Ksb, Wn,
+      num_seek, bound);
+}
+// The tile kernel's window staging alone: thread 0 issues a window of Wn
+// rows (window_issue), and every thread copies the buffer out before the
+// mbarrier wait (early) and after it (late).
+namespace pienerf {
+__global__ void window_read(const float* src, int Wn, float* early,
+                            float* late) {
+  float* win = reinterpret_cast<float*>(smem4);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(win + Wn * 16);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) window_issue(win, bar, src, Wn);
+  for (int e = threadIdx.x; e < Wn * 16; e += kT2) early[e] = win[e];
+  mbar_wait(bar, 0);
+  for (int e = threadIdx.x; e < Wn * 16; e += kT2) late[e] = win[e];
+}
+}  // namespace pienerf
+extern "C" int window_read_run(const float* src, int Wn, float* early,
+                               float* late) {
+  cudaStream_t st = nullptr;
+  auto kern = pienerf::window_read;
+  kern<<<1, pienerf::kT2, (size_t)Wn * 64 + 16, st>>>(src, Wn, early, late);
+  return (int)cudaGetLastError();
+}
+"""
+
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """Every kernel source built for the emulation, loaded with ctypes."""
@@ -583,7 +1053,8 @@ def libs(tmp_path_factory):
             code = emulated(f.read(), src.endswith(".cu"))
         (d / src.replace(".cu", ".cpp") if src.endswith(".cu")
          else d / src).write_text(code)
-    tests_cu = {"field_ref": FIELD_REF_CU, "mbar_ref": MBAR_REF_CU}
+    tests_cu = {"field_ref": FIELD_REF_CU, "mbar_ref": MBAR_REF_CU,
+                "tile_ref": TILE_REF_CU}
     for name, code in tests_cu.items():
         (d / f"{name}.cpp").write_text(emulated(code))
     procs = {}
@@ -826,10 +1297,11 @@ def test_emulated_mma_routing_is_exact(libs, wd):
             out[1:], np.float32(1) / (np.float32(1) + _libm("expf", -c_pre)))
 
 
-def _tile_run(libs, spec, pw, args, kw, block_tiles=1):
+def _tile_run(libs, spec, pw, args, kw, block_tiles=1, timed=False):
     """The emulated tile kernel as ``kernels.tile.render_tiles`` launches
     it: the paired library for a paired pack, the tiles padded to a
-    multiple of ``block_tiles``."""
+    multiple of ``block_tiles``. ``timed``: the timed instantiation, as
+    ``render_tiles_timed`` launches it -> (out, cycles)."""
     paired = tfk.is_paired(spec, pw)
     A0 = args[0].shape[0]
     tile_sc, bin_start, dirs, cand = ttk._pad_tiles(
@@ -838,19 +1310,23 @@ def _tile_run(libs, spec, pw, args, kw, block_tiles=1):
          (tile_sc, bin_start, args[2], dirs, cand)]
     A, P = a[4].shape[0], a[4].shape[1]
     out = np.full((A, 8, ttk.T2), np.nan, np.float32)
-    fn = (libs["tile_paired"].pienerf_render_tiles_paired if paired
+    cycles = np.zeros((A, ttk.T2 // 32, ttk.SPLIT_COLS), np.int64)
+    fn = (libs["tile"].pienerf_render_tiles_timed if timed
+          else libs["tile_paired"].pienerf_render_tiles_paired if paired
           else libs["tile_block"].pienerf_render_tiles_block
           if block_tiles > 1 else libs["tile"].pienerf_render_tiles)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * (
+            2 if timed else 1)
     rc = fn(*(_ptr(t) for t in a), _ptr(pw.numpy()), _ptr(out), A,
             block_tiles, a[1].shape[1], P, kw["K"], kw["Ks"], kw["Ksb"],
             kw["Wn"], kw["num_seek"], spec.bound,
             int(spec.compute_dtype == "bfloat16"), int(kw["deformed"]),
-            int(kw["cut"]), tfk.kernel_width(spec), None)
+            int(kw["cut"]), tfk.kernel_width(spec),
+            *((_ptr(cycles),) if timed else ()), None)
     assert rc == 0
-    return out[:A0]
+    return (out[:A0], cycles[:A0]) if timed else out[:A0]
 
 
 def _tile_inputs(mode):
@@ -1015,6 +1491,175 @@ def test_emulated_block_tiles_equals_one_tile_per_block(libs, mode, wd,
     np.testing.assert_array_equal(out, ref)
 
 
+def _tile_ref_run(libs, spec, pw, args, kw, block_tiles=1):
+    """The tile kernel before the one-pass scan (TILE_REF_KERNEL, commit
+    db7d684), emulated, launched as
+    ``_tile_run`` launches the kernel."""
+    A0 = args[0].shape[0]
+    tile_sc, bin_start, dirs, cand = ttk._pad_tiles(
+        block_tiles, args[0], args[1], args[3], args[4])
+    a = [t.contiguous().numpy() for t in
+         (tile_sc, bin_start, args[2], dirs, cand)]
+    A, P = a[4].shape[0], a[4].shape[1]
+    out = np.full((A, 8, ttk.T2), np.nan, np.float32)
+    fn = libs["tile_ref"].tile_ref
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        ctypes.c_float] + [ctypes.c_int] * 5
+    assert fn(*(_ptr(t) for t in a), _ptr(pw.numpy()), _ptr(out), A,
+              block_tiles, a[1].shape[1], P, kw["K"], kw["Ks"], kw["Ksb"],
+              kw["Wn"], kw["num_seek"], spec.bound,
+              int(spec.compute_dtype == "bfloat16"), int(kw["deformed"]),
+              int(kw["cut"]), tfk.kernel_width(spec),
+              int(tfk.is_paired(spec, pw))) == 0
+    return out[:A0]
+
+
+def _crafted_tile_inputs(feature, Wn, Ksb, num_seek, mode, seed):
+    """Kernel inputs that make the window scan choose among rows on
+    purpose: three tiles of 256 rays from (0, 0, -2.5) into the unit box, K
+    = 8 samples a ray, P = 2 Wn candidates a tile scattered over the
+    samples (not depth-sorted: rows outside a sub-segment's [lo, hi) lie as
+    near as the rows inside), one Newton row each (p_ori, F^-1 near the
+    identity), and bin counts drawn per ``feature``:
+
+    ties      every odd row repeats the row before it (equal distances)
+    invalid   a third of the rows invalid, interleaved with valid ones
+    outside   0-2 candidates a bin: most staged rows outside [lo, hi)
+    few       mostly empty bins: fewer rows in range than num_seek
+    none      one tile with no candidate, one whose rows are all invalid,
+              and a short reach (halo 1): sub-segments with nothing in range
+    nan       a NaN direction on one ray (NaN sample positions), a NaN p_def
+              on one valid row
+    overflow  5-20 candidates a bin: [lo, hi) wider than Wn, the drops
+              counted
+    exit      a dense field and K = 16: tiles exit early, dropping the
+              window issued for their next segment
+    chunks    (Ksb 8) two window passes a sub-segment
+    """
+    rng = np.random.RandomState(seed)
+    A, K = 3, 16 if feature == "exit" else 8
+    Ks = max(4, Ksb)
+    P = 2 * Wn
+    uv = rng.uniform(-0.15, 0.15, (A, 2, ttk.T2)).astype(np.float32)
+    d = np.concatenate([uv, np.ones((A, 1, ttk.T2), np.float32)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dirs = np.zeros((A, 8, ttk.T2), np.float32)
+    dirs[:, :3] = d
+    tile_sc = np.zeros((A, 8), np.float32)
+    tile_sc[:, 0], tile_sc[:, 1], tile_sc[:, 2] = 2.0, 3.0, 1.0
+    p_def = np.stack([rng.uniform(-0.45, 0.45, (A, P)),
+                      rng.uniform(-0.45, 0.45, (A, P)),
+                      rng.uniform(-0.55, 0.55, (A, P))], -1)
+    if feature == "ties":
+        p_def[:, 1::2] = p_def[:, 0::2]
+    cand = np.zeros((A, P, 16), np.float32)
+    cand[..., 0:3] = p_def
+    cand[..., 3:6] = p_def + rng.normal(0.0, 0.02, (A, P, 3))
+    cand[..., 6:15] = (np.eye(3).ravel()
+                       + rng.normal(0.0, 0.05, (A, P, 9)))
+    cand[..., 15] = 1.0
+    if feature == "invalid":
+        cand[..., 15] = rng.rand(A, P) >= 1.0 / 3.0
+    hi_bin = {"outside": 3, "few": 2, "overflow": 21}.get(feature, 6)
+    lo_bin = 5 if feature == "overflow" else 0
+    counts = rng.randint(lo_bin, hi_bin, (A, K + 2))
+    if feature == "few":
+        counts *= rng.rand(A, K + 2) < 0.3
+    bs = np.zeros((A, K + 4), np.int32)
+    bs[:, 1:K + 3] = np.minimum(np.cumsum(counts, 1), P)
+    bs[:, K + 3] = bs[:, K + 2]
+    reach = 0.25
+    if feature == "none":
+        bs[0] = 0
+        cand[1, :, 15] = 0.0
+        reach = 0.1
+    if feature == "nan":
+        dirs[0, 0, 5] = np.nan
+        cand[1, 3, 0:3] = np.nan
+    params = np.zeros(24, np.float32)
+    params[0:3] = (0.0, 0.0, -2.5)
+    params[3:6], params[6:9] = -1.0, 1.0            # march bbox
+    params[9] = 1e-4                                 # T_thresh
+    params[10] = 1e3 if feature == "exit" else 0.02  # density scale
+    params[11] = 0.2                                 # ip_dx
+    params[12] = 0.05                                # min_near
+    params[13:19] = (-0.1, 0.5, -0.5, 0.5, -0.3, 0.6)  # cut box
+    params[19] = 0.5                                 # t_jitter
+    params[20] = reach
+    args = tuple(torch.from_numpy(np.ascontiguousarray(t)) for t in
+                 (tile_sc, bs, params, dirs, cand))
+    kw = dict(K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
+              deformed=mode != "static", cut=mode == "cut")
+    return args, kw
+
+
+@pytest.mark.parametrize("feature,num_seek,Ksb,Wn,mode,dtype,schedule,wd", [
+    ("ties", 3, 4, 16, "deformed", "float32", "default", 64),
+    ("ties", 2, 2, 64, "cut", "bfloat16", "paired", 64),
+    ("invalid", 3, 4, 64, "deformed", "bfloat16", "default", 64),
+    ("invalid", 1, 1, 16, "cut", "float32", "block", 64),
+    ("outside", 2, 4, 16, "deformed", "bfloat16", "block", 128),
+    ("outside", 3, 2, 64, "cut", "float32", "default", 64),
+    ("few", 3, 4, 16, "deformed", "float32", "paired", 64),
+    ("few", 2, 1, 64, "cut", "bfloat16", "default", 128),
+    ("none", 3, 2, 16, "deformed", "bfloat16", "default", 64),
+    ("none", 1, 4, 16, "cut", "float32", "paired", 64),
+    ("nan", 3, 4, 16, "deformed", "float32", "default", 128),
+    ("nan", 2, 4, 64, "cut", "bfloat16", "block", 64),
+    ("overflow", 3, 4, 16, "deformed", "bfloat16", "paired", 64),
+    ("overflow", 1, 2, 16, "cut", "float32", "default", 64),
+    ("exit", 3, 4, 16, "deformed", "bfloat16", "block", 64),
+    ("exit", 2, 2, 16, "cut", "float32", "paired", 64),
+    ("chunks", 3, 8, 16, "deformed", "float32", "default", 64),
+    ("chunks", 2, 8, 64, "cut", "bfloat16", "block", 128),
+    ("outside", 3, 4, 16, "static", "bfloat16", "paired", 64),
+])
+def test_emulated_tile_scan_equals_argmin_passes(libs, feature, num_seek,
+                                                 Ksb, Wn, mode, dtype,
+                                                 schedule, wd):
+    """The one-pass window scan against the num_seek argmin passes it
+    replaced (TILE_REF_KERNEL) on crafted windows: bit for bit, every
+    output row, in every mode, dtype and schedule (the static march, which
+    has no scan, once)."""
+    spec = _spec(wd)._replace(compute_dtype=dtype)
+    field = tnet.FieldMLP(spec, generator=torch.Generator().manual_seed(3))
+    pw = (tfk.pack_weights_paired if schedule == "paired"
+          else tfk.pack_weights)(field, spec, CPU)
+    args, kw = _crafted_tile_inputs(feature, Wn, Ksb, num_seek, mode,
+                                    seed=num_seek * 100 + Ksb * 10 + Wn)
+    B = 2 if schedule == "block" else 1
+    out = _tile_run(libs, spec, pw, args, kw, block_tiles=B)
+    ref = _tile_ref_run(libs, spec, pw, args, kw, block_tiles=B)
+    np.testing.assert_array_equal(out, ref)
+    assert np.isfinite(ref[:, 4]).any() and ref[:, 4].max() > 0
+
+
+@pytest.mark.parametrize("mode,wd", [("deformed", 64), ("cut", 64),
+                                     ("deformed", 128), ("cut", 128)])
+def test_emulated_timed_tile_kernel_equals_untimed(libs, mode, wd):
+    """The timed instantiation (bf16) adds clock reads and nothing else:
+    its output equals the untimed kernel's bit for bit. Every active
+    tile's warps count cycles in every phase it ran (the emulated clock
+    ticks once a read), the phases add up to no more than the tile's
+    total, its global-timer span is positive, and inactive slots stay
+    zero."""
+    spec, pw = _weights(wd, 3)
+    spec = spec._replace(compute_dtype="bfloat16")
+    args, kw = _tile_inputs(mode)
+    ref = _tile_run(libs, spec, pw, args, kw)
+    out, cyc = _tile_run(libs, spec, pw, args, kw, timed=True)
+    np.testing.assert_array_equal(out, ref)
+    active = args[0][:, 2].numpy() > 0
+    assert active.any()
+    n_ph = len(ttk.SPLIT_PHASES)
+    c = cyc[active]
+    assert (c[..., :n_ph] > 0).all()
+    assert (c[..., :n_ph].sum(-1) <= c[..., n_ph]).all()
+    assert (c[..., n_ph + 2] > c[..., n_ph + 1]).all()
+    assert not cyc[~active].any()
+
+
 def _fetch_run(libs, which, table, idx):
     """The emulated fetch kernel ``which`` -> out [B, 128] (NaN where it
     wrote nothing)."""
@@ -1088,6 +1733,22 @@ def test_emulated_fetch_block_all_outside_gives_zeros(libs, which):
     out = _fetch_run(libs, which, table, idx)
     assert not out[:512].any()
     np.testing.assert_array_equal(out, _fetch_ref(table, idx))
+
+
+def test_emulated_tile_window_read_before_wait_sees_poison(libs):
+    """The tile kernel's window goes on one bulk copy (window_issue): a
+    read of the buffer before the wait on its mbarrier phase reads the NaN
+    poison, and after it the candidate rows."""
+    Wn = 16
+    rows = np.random.RandomState(19).randn(Wn, 16).astype(np.float32)
+    early = np.zeros((Wn, 16), np.float32)
+    late = np.zeros((Wn, 16), np.float32)
+    fn = libs["tile_ref"].window_read_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+    assert fn(_ptr(rows), Wn, _ptr(early), _ptr(late)) == 0
+    assert np.isnan(early).all()
+    np.testing.assert_array_equal(late, rows)
 
 
 def test_emulated_mbarrier_read_before_wait_sees_poison(libs):

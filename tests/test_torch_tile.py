@@ -126,3 +126,22 @@ def test_render_tiles_checks_shapes():
     assert torch.equal(out, torch.zeros((A, 8, 256)))   # all inactive
     with pytest.raises(NotImplementedError):
         tfk.check_kernel_spec(tnet.make_spec(hidden_dim=32), pw)
+
+
+def test_render_tiles_timed_runs_on_the_card_only():
+    """The timed instantiation is a measurement of the CUDA kernel: it has
+    no plain version, so CPU tensors are refused whatever the dtype, and
+    it shares render_tiles's shape checks."""
+    A, P = 2, 32
+    args = (torch.zeros((A, 8)), torch.zeros((A, K + 4), dtype=torch.int32),
+            torch.zeros(24), torch.ones((A, 8, 256)), torch.zeros((A, P, 16)))
+    pw = torch.zeros((7, 64, 64))
+    kw = dict(K=K, Ks=KS, Ksb=KSB, Wn=32, num_seek=3)
+    for dtype in ("bfloat16", "float32"):
+        spec = tnet.make_spec(bound=1.0, compute_dtype=dtype)
+        with pytest.raises(ValueError, match="CUDA"):
+            ttk.render_tiles_timed(spec, pw, *args, **kw)
+    with pytest.raises(ValueError, match="num_seek"):
+        ttk._check_shapes(args[4], args[1], **dict(kw, num_seek=4),
+                          block_tiles=1)
+    assert ttk.SPLIT_COLS == len(ttk.SPLIT_PHASES) + 3 == 8
