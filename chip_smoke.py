@@ -27,7 +27,17 @@ entry points at full width on the trained checkpoint:
     and micro_floor (the tile kernel's shell, six arms);
   the large-scene simulator: a pinned sphere above 6,000 IPs through the
     cached init, the chunked and the dense operator, bf16 storage and one
-    coupled frame; and main_sim as a user runs it.
+    coupled frame; and main_sim as a user runs it;
+  main path 3, the non-fused render paths: one occupancy-grid update of
+    the committed field, the static and the hierarchical render at
+    800x800, ten spatial-hash deformed frames (pipeline.frame_step) on the
+    bench scene, the default hash grid at full width (its plain encode
+    timed alone, a static render and deformed frames at 256x256), the
+    Simulator facade against the functions, and main_render as a user
+    runs it on dumps of the deformed frame's state (its PNG equal to
+    render_frame's image, the field kernel launched). Each render is held
+    against the port's CPU run on a subset of its rays, from the same
+    inputs and draws.
 
 The bf16 instantiations of both kernels run the field MLP on the tensor
 cores, the f32 ones on the CUDA cores: the build phase reports every
@@ -607,6 +617,378 @@ def tile_split(phase, tk, spec16, pw, args, kw, base_row, resident,
     return row
 
 
+def main_path_3(c) -> dict:
+    """Main path 3: the non-fused render paths of the JAX package's XLA
+    side (the occupancy grid, the static and hierarchical renderers, the
+    spatial-hash deformed frame on the mlp field and on the default hash
+    grid, the Simulator facade, main_render). Each card result is held
+    against the port's CPU run on a subset of rays (rays are independent
+    once a frame's structures are built) with the same inputs and draws.
+    ``c`` carries main()'s state. Returns main_render's field-kernel
+    launches."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pienerf_tpu_torch.config import PieNeRFConfig, get_shared_opts
+    from pienerf_tpu_torch.data.rays import get_rays_full
+    from pienerf_tpu_torch.io.framesink import read_png
+    from pienerf_tpu_torch.main_gui import _load_field
+    from pienerf_tpu_torch.models import network
+    from pienerf_tpu_torch.ops import beam_bend
+    from pienerf_tpu_torch.ops import grid as gridlib
+    from pienerf_tpu_torch.render import deformed, fast, interactive
+    from pienerf_tpu_torch.render import pipeline, renderer
+    from pienerf_tpu_torch.sim import solver as sim
+
+    dev, cpu = c.dev, torch.device("cpu")
+    H = W = 800
+    pose, intr = c.pose, c.intr
+    field, field_cpu = c.field, copy.deepcopy(c.field).cpu()
+
+    def sync_ms(fn, reps):
+        """Host ms per call, each call ending in a device sync."""
+        out, ms = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    def profiled(fn, n, ms):
+        """frame_profile over n calls of fn."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return frame_profile(prof, n, ms)
+
+    def flat_rows(h, w, every, every_col=1):
+        """Flat indices of every ``every``-th row (and ``every_col``-th
+        column): the rays a CPU re-render takes."""
+        rows = torch.arange(0, h, every)
+        return (rows[:, None] * w
+                + torch.arange(0, w, every_col)[None]).reshape(-1)
+
+    def cpu_rays(idx, h, w, intr_):
+        ro, rd = get_rays_full(pose.cpu(), intr_, h, w)
+        return ro[idx], rd[idx]
+
+    def chunked(fn, n, chunk=8192):
+        """fn(s, e) over [s, e) ray ranges of at most ``chunk`` rays."""
+        outs = [fn(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+        return torch.cat(outs)
+
+    # ---- occupancy_grid: one full update of the committed field, cascade
+    # from its config (bound 1), the jitter from an explicit generator
+    cfg = PieNeRFConfig(bound=1.0).finalize()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h3 = gridlib.GRID_SIZE ** 3
+    noise = torch.rand((cfg.cascade, h3, 3), generator=gen,
+                       device=dev) * 2.0 - 1.0
+
+    def dens(f):
+        return lambda x: f.density(x)[0]
+
+    def update(f, d, nz):
+        return gridlib.update(gridlib.init(cfg.cascade, d), dens(f),
+                              cfg.bound, cfg.density_thresh, noise=nz)
+
+    g, grid_ms = sync_ms(lambda: update(field, dev, noise), 3)
+    t0 = time.perf_counter()
+    g_cpu = update(field_cpu, cpu, noise.cpu())
+    grid_cpu_s = time.perf_counter() - t0
+    bits = [np.unpackbits(x.bitfield.cpu().numpy().view(np.uint8),
+                          bitorder="little").astype(bool) for x in (g, g_cpu)]
+    dcpu = g_cpu.density.numpy().reshape(-1)
+    th = min(float(g_cpu.mean_density), cfg.density_thresh)
+    near = np.abs(dcpu - th) <= 1e-5 * th
+    differ = bits[0] != bits[1]
+    emit("occupancy_grid", cascade=cfg.cascade, cells=int(bits[0].size),
+         ms_reps=grid_ms, ms=float(np.median(grid_ms)),
+         mean_density=float(g.mean_density),
+         mean_density_cpu=float(g_cpu.mean_density),
+         set_share=float(bits[0].mean()), differing_bits=int(differ.sum()),
+         near_threshold_cells=int(near.sum()),
+         differing_off_threshold=int((differ & ~near).sum()),
+         cpu_s=grid_cpu_s)
+    assert bits[0].any() and not (differ & ~near).any()
+
+    # ---- static_render: render_image at 800x800, K = 256 (the trainer's
+    # infer_settings) on that bitfield
+    st = renderer.RenderSettings(
+        bound=cfg.bound, cascade=cfg.cascade, min_near=cfg.min_near,
+        dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
+        T_thresh=cfg.T_thresh, max_samples=256, bg_radius=cfg.bg_radius)
+
+    def static():
+        return renderer.render_image(field, st, g, pose, intr, H, W)
+
+    img_s, static_ms = sync_ms(static, 3)
+    prof_s = profiled(static, 1, float(np.median(static_ms)))
+    idx = flat_rows(H, W, 16)
+    ro, rd = cpu_rays(idx, H, W, intr)
+    bf_cpu = g.bitfield.cpu()
+    t0 = time.perf_counter()
+    sub = chunked(lambda s, e: renderer.render_rays(
+        field_cpu, st, bf_cpu, ro[s:e], rd[s:e], 1.0)["image"], len(idx))
+    static_cpu_s = time.perf_counter() - t0
+    card = img_s["image"].reshape(-1, 3)[idx.to(dev)].cpu()
+    p_static = psnr(card.numpy(), sub.numpy())
+    emit("static_render", resolution=[W, H], max_samples=256,
+         ms_reps=static_ms, ms=float(np.median(static_ms)),
+         device_busy_ms=prof_s["device_busy_ms"],
+         device_idle_share=prof_s["device_idle_share"],
+         device_events=prof_s["device_events"],
+         weights_sum_mean=float(img_s["weights_sum"].mean()),
+         psnr_vs_cpu=p_static, cpu_rays=len(idx), cpu_s=static_cpu_s,
+         limit_db=60.0)
+    assert bool(torch.isfinite(img_s["image"]).all()) and p_static >= 60.0
+
+    # ---- fast_render: render_image_fast at 800x800, 128 coarse + 128
+    # fine, the same draws on both sides
+    fst = fast.FastSettings(bound=cfg.bound, min_near=cfg.min_near,
+                            T_thresh=cfg.T_thresh, num_coarse=128,
+                            num_fine=128, bg_radius=cfg.bg_radius)
+    draws = fast.draw(H * W, fst, gen, dev)
+
+    def hier():
+        return fast.render_image_fast(field, fst, pose, intr, H, W,
+                                      draws=draws)
+
+    img_f, fast_ms = sync_ms(hier, 3)
+    prof_f = profiled(hier, 1, float(np.median(fast_ms)))
+    idxf = flat_rows(H, W, 16, 2)
+    rof, rdf = cpu_rays(idxf, H, W, intr)
+    uc, uf = (d[idxf.to(dev)].cpu() for d in draws)
+    t0 = time.perf_counter()
+    sub = chunked(lambda s, e: fast.render_rays_fast(
+        field_cpu, fst, rof[s:e], rdf[s:e], 1.0, u_coarse=uc[s:e],
+        u_fine=uf[s:e])["image"], len(idxf))
+    fast_cpu_s = time.perf_counter() - t0
+    card = img_f["image"].reshape(-1, 3)[idxf.to(dev)].cpu()
+    p_fast = psnr(card.numpy(), sub.numpy())
+    emit("fast_render", resolution=[W, H], num_coarse=128, num_fine=128,
+         ms_reps=fast_ms, ms=float(np.median(fast_ms)),
+         device_busy_ms=prof_f["device_busy_ms"],
+         device_idle_share=prof_f["device_idle_share"],
+         psnr_vs_cpu=p_fast, psnr_vs_static=psnr(
+             img_f["image"].cpu().numpy(), img_s["image"].cpu().numpy()),
+         cpu_rays=len(idxf), cpu_s=fast_cpu_s, limit_db=60.0)
+    assert bool(torch.isfinite(img_f["image"]).all()) and p_fast >= 60.0
+
+    # ---- deformed_frame: pipeline.frame_step on the bench scene (its
+    # config: sim_dx 0.05, 3 seeks, one Newton step, min_near 0.05), the
+    # spring drag, 10 chained frames at 800x800
+    cfgb = PieNeRFConfig(bound=1.0, sim_dx=0.05, num_seek_IP=3,
+                         max_iter_num=1, min_near=0.05).finalize()
+    vid_t = torch.tensor(c.vid, device=dev)
+    rays = get_rays_full(pose, intr, H, W)
+
+    def frames(fs, fld, bf, rays_, n, state):
+        out = None
+        for fi in range(n):
+            state, out = pipeline.frame_step(
+                fs, c.consts, state, fld, bf, *rays_, 1.0, vid_t,
+                c.spring(state, fi))
+        return state, out
+
+    fs = pipeline.make_frame_settings(c.spec32, cfgb, cfgb.sim_dx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out_d = frames(fs, field, g.bitfield, rays, 10, c.state_rest)
+    torch.cuda.synchronize()
+    deformed_ms = (time.perf_counter() - t0) / 10 * 1e3
+    assert bool(torch.isfinite(state.ddof).all())
+    prof_d = profiled(lambda: frames(fs, field, g.bitfield, rays, 1, state),
+                      1, deformed_ms)
+    p_def, F, dF = sim.get_ip_info(c.consts, state)
+    p_ori = c.consts.ip_pos.float()
+    ipc = [a.cpu() for a in (p_def, p_ori, F, dF)]
+    idx32 = flat_rows(H, W, 32, 8)
+    ro32, rd32 = cpu_rays(idx32, H, W, intr)
+    t0 = time.perf_counter()
+    cc, no = deformed.prepare_frame(fs.deformed, ipc[0])
+    sub = chunked(lambda s, e: deformed.render_rays_deformed(
+        field_cpu, fs.deformed, bf_cpu, *ipc, ro32[s:e], rd32[s:e], 1.0,
+        None, cc, no)["image"], len(idx32), 4096)
+    deformed_cpu_s = time.perf_counter() - t0
+    img_d = out_d["image"]
+    p_deformed = psnr(img_d[idx32.to(dev)].cpu().numpy(), sub.numpy())
+    ist_x = interactive.InteractiveSettings(
+        spec=c.spec32, bend=beam_bend.BeamBendSettings(
+            num_seek_ip=3, max_iter_num=1, ip_dx=1.05 * cfgb.sim_dx,
+            ips_per_tile=256), tile=16, samples=128, min_near=0.05)
+    ox = interactive.render_frame_exact(ist_x, c.pw, p_def, p_ori, F, dF,
+                                        pose, intr, H, W, 1.0, tile_chunk=8)
+    img_x = interactive.tiles_to_image(ox["tiles_image"], H, W)
+    emit("deformed_frame", resolution=[W, H], n_ip=int(p_def.shape[0]),
+         frames=10, max_samples=fs.deformed.base.max_samples,
+         max_bend_samples=fs.deformed.max_bend_samples,
+         max_steps=fs.deformed.base.max_steps, ms_per_frame=deformed_ms,
+         stage_host_ms=prof_d["stage_host_ms"],
+         device_busy_ms=prof_d["device_busy_ms"],
+         device_idle_share=prof_d["device_idle_share"],
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         psnr_vs_cpu=p_deformed, cpu_rays=len(idx32), cpu_s=deformed_cpu_s,
+         limit_db=60.0,
+         psnr_vs_port_exact=psnr(img_d.reshape(H, W, 3).cpu().numpy(),
+                                 img_x))
+    assert bool(torch.isfinite(img_d).all()) and p_deformed >= 60.0
+
+    # ---- hashgrid_frame: the package's default hash grid at full width
+    # (16 levels x 2, 2^19 a level, desired_resolution 2048, 64-wide nets)
+    # on a seeded field, its embeddings from U(-1, 1) so the encode shapes
+    # the field; static and deformed at 256x256 (the resolution is cut,
+    # not the width)
+    r = 256
+    intr_r = (1.2 * r, 1.2 * r, r / 2, r / 2)
+    spec_h = network.make_spec(bound=1.0, backbone="hashgrid")
+    gcpu = torch.Generator().manual_seed(0)
+    field_h = network.FieldMLP(spec_h, generator=gcpu, device=dev)
+    field_h.encoder.data = (torch.rand(tuple(field_h.encoder.shape),
+                                       generator=gcpu) * 2 - 1).to(dev)
+    field_hc = copy.deepcopy(field_h).cpu()
+    # the plain encode alone at N = 2^20 (the baseline of a fused hash-grid
+    # kernel): each point reads 8 corners x 16 levels x 2 f32 channels
+    from pienerf_tpu_torch.models import hash_encoder
+    n_enc = 1 << 20
+    x_enc = torch.rand((n_enc, 3), generator=gen, device=dev) * 2 - 1
+    enc_ms = cuda_ms(lambda: hash_encoder.encode(
+        field_h.encoder, spec_h.grid, x_enc, 1.0, feature_major=True), 5)
+    enc_bytes = n_enc * (12 + 8 * spec_h.grid.num_levels * 2 * 4
+                         + spec_h.grid.output_dim * 4)
+    torch.cuda.reset_peak_memory_stats()
+    gh, hgrid_ms = sync_ms(lambda: gridlib.update(
+        gridlib.init(1, dev), dens(field_h), 1.0, cfg.density_thresh,
+        generator=gen), 1)
+    img_h, hstatic_ms = sync_ms(lambda: renderer.render_image(
+        field_h, st, gh, pose, intr_r, r, r), 3)
+    fs_h = pipeline.make_frame_settings(spec_h, cfgb, cfgb.sim_dx)
+    rays_r = get_rays_full(pose, intr_r, r, r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_h, out_h = frames(fs_h, field_h, gh.bitfield, rays_r, 3,
+                            c.state_rest)
+    torch.cuda.synchronize()
+    hframe_ms = (time.perf_counter() - t0) / 3 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    idxh = flat_rows(r, r, 32, 4)
+    roh, rdh = cpu_rays(idxh, r, r, intr_r)
+    bfh = gh.bitfield.cpu()
+    t0 = time.perf_counter()
+    sub_s = renderer.render_rays(field_hc, st, bfh, roh, rdh, 1.0)["image"]
+    iph = [a.cpu() for a in sim.get_ip_info(c.consts, state_h)]
+    sub_d = deformed.render_deformed_chunked(
+        field_hc, fs_h.deformed, bfh, iph[0], p_ori.cpu(), iph[1], iph[2],
+        roh, rdh, 1.0)["image"]
+    hcpu_s = time.perf_counter() - t0
+    p_hs = psnr(img_h["image"].reshape(-1, 3)[idxh.to(dev)].cpu().numpy(),
+                sub_s.numpy())
+    p_hd = psnr(out_h["image"][idxh.to(dev)].cpu().numpy(), sub_d.numpy())
+    emit("hashgrid_frame", resolution=[r, r], levels=spec_h.grid.num_levels,
+         table_rows=spec_h.grid.total_params,
+         log2_hashmap_size=spec_h.grid.log2_hashmap_size,
+         encode_n=n_enc, encode_ms=enc_ms,
+         encode_gather_bound_ms=enc_bytes / PEAK_BYTES * 1e3,
+         grid_update_ms=hgrid_ms[0], static_ms_reps=hstatic_ms,
+         static_ms=float(np.median(hstatic_ms)), frame_ms=hframe_ms,
+         peak_memory_gb=peak, set_share=float(np.unpackbits(
+             gh.bitfield.cpu().numpy().view(np.uint8)).mean()),
+         psnr_static_vs_cpu=p_hs, psnr_frame_vs_cpu=p_hd,
+         cpu_rays=len(idxh), cpu_s=hcpu_s, limit_db=60.0)
+    assert bool(torch.isfinite(out_h["image"]).all())
+    assert p_hs >= 60.0 and p_hd >= 60.0, (p_hs, p_hd)
+
+    # ---- simulator_facade: 20 stepforwards with update_force through
+    # the Simulator equal the same calls through the functions
+    r0, dxs = 0.45, 0.1
+    cs = np.arange(-r0, r0 + 1e-6, dxs)
+    xx, yy, zz = np.meshgrid(cs, cs, cs, indexing="ij")
+    pts = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], 1)
+    pts = pts[np.linalg.norm(pts, axis=1) <= r0]
+    n = pts.shape[0]
+    sargs = (pts, np.full(n, 0.1), np.full(n, 1e5), np.full(n, 1e5),
+             pts[:, 2] < -0.3)
+    skw = dict(dt=1e-2, iters=10, bbox=np.array([2.0, 2.0, 2.0]), kres=7,
+               dx=dxs, gravity=(0.0, 0.0, 0.0), stiff=1e5,
+               base=np.array([-1.0, -1.0, -1.0]))
+    simr = sim.Simulator(device=dev, **skw)
+    simr.initialize(*sargs)
+    consts_s, state_s, _ = sim.sim_init(*sargs, device=dev, **skw)
+    svid = int(np.argmax(consts_s.ip_pos[:, 2].cpu().numpy()))
+    equal = True
+    for i in range(20):
+        f = [2e3 * np.cos(0.3 * i), 1e3, 0.0]
+        simr.update_force(svid, f)
+        simr.stepforward()
+        state_s = sim.sim_step(consts_s, sim.update_force(
+            consts_s, state_s, svid, torch.tensor(f, dtype=torch.float32,
+                                                  device=dev)))
+        equal = equal and bool(torch.equal(simr.state.ddof, state_s.ddof))
+    emit("simulator_facade", n_ip=int(consts_s.ip_pos.shape[0]), steps=20,
+         equal=equal, moved=float(state_s.ddof.abs().max()))
+    assert equal and float(state_s.ddof.abs().max()) > 0
+
+    # ---- main_render as a user runs it, on dumps of the deformed frame's
+    # last state; its PNG equals render_frame on the same state
+    dump = os.path.join(ROOT, "build", "smoke_render_dump")
+    os.makedirs(dump, exist_ok=True)
+    for name, a in (("ip_pos_0", p_def), ("ip_F_0", F), ("ip_dF_0", dF),
+                    ("ip_rest", p_ori)):
+        np.save(os.path.join(dump, f"{name}.npy"), a.cpu().numpy())
+    png = os.path.join(dump, "render.png")
+    if os.path.exists(png):
+        os.remove(png)
+    flags = ["--workspace", "runs/quality_mlp_800", "--backbone", "mlp",
+             "--H", str(r), "--W", str(r), "--sim_dx", "0.05",
+             "--num_seek_IP", "3"]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pienerf_tpu_torch.main_render", *flags,
+         "--dump_dir", dump, "--frame", "0", "--out", png], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    mr_s = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-4000:]
+    line = [s for s in res.stdout.splitlines()
+            if s.startswith("field kernel launches: ")]
+    mr_launches = json.loads(line[-1].split(": ", 1)[1])
+    cfg_r = get_shared_opts(None, flags)
+    spec_r, pw_r = _load_field(cfg_r, dev)
+    bst = beam_bend.BeamBendSettings(
+        num_seek_ip=cfg_r.num_seek_IP, max_iter_num=cfg_r.max_iter_num,
+        ip_dx=1.05 * cfg_r.sim_dx)
+    ist_r = interactive.InteractiveSettings(
+        spec=spec_r, bend=bst, samples=96, min_near=cfg_r.min_near,
+        T_thresh=cfg_r.T_thresh, cut=cfg_r.cut, bound=cfg_r.bound)
+    focal = r / (2 * np.tan(np.radians(cfg_r.fovy) / 2))
+    c.reset_counts()
+    o = interactive.render_frame(
+        ist_r, pw_r, beam_bend.pack_for(bst, p_def, p_ori, F, dF), p_def,
+        pose, (focal, focal, r / 2, r / 2), r, r, 1.0)
+    torch.cuda.synchronize()
+    inproc = c.read_counts()
+    want = (np.clip(interactive.tiles_to_image(o["tiles_image"], r, r), 0, 1)
+            * 255).astype(np.uint8)
+    got = read_png(png)
+    emit("main_render", rc=res.returncode, seconds=mr_s,
+         resolution=[r, r], max_iter_num=cfg_r.max_iter_num,
+         png_equals_render_frame=bool(np.array_equal(got, want)),
+         field_kernel_launches=mr_launches,
+         in_process_launches=inproc["field_w64"],
+         tail=res.stdout.strip().splitlines()[-2:])
+    assert np.array_equal(got, want) and want.std() > 1
+    assert mr_launches.get("w64_float32", 0) > 0
+    assert inproc == c.only(field_w64=inproc["field_w64"])
+    assert inproc["field_w64"] > 0
+    return mr_launches
+
+
 def main() -> None:
     import torch
 
@@ -785,16 +1167,24 @@ def main() -> None:
     vid_nx = consts.IP_Nx[vid]
     vid_rest = consts.ip_pos[vid]
 
-    def frame(st, fi, settings, weights):
+    def spring(st, fi):
         # the GUI's spring drag toward a target orbiting the IP (bench.py)
         p_ip = vid_rest + torch.einsum("ia,iad->d", vid_nx,
                                        st.ddof[vid_kernel])
         ang = torch.tensor(0.25 * fi, device=dev)
         target = vid_rest + 0.25 * torch.stack(
             [torch.cos(ang), torch.sin(ang), torch.zeros((), device=dev)])
-        f = torch.clamp(1e5 * (target - p_ip), -5e5, 5e5)
+        return torch.clamp(1e5 * (target - p_ip), -5e5, 5e5)
+
+    def frame(st, fi, settings, weights):
         return pipeline.interactive_frame_step(
-            settings, consts, st, weights, pose, intr, H, W, 1.0, vid, f)
+            settings, consts, st, weights, pose, intr, H, W, 1.0, vid,
+            spring(st, fi))
+
+    path3 = types.SimpleNamespace(
+        dev=dev, pose=pose, intr=intr, field=field, pw=pw, spec32=spec32,
+        consts=consts, state_rest=state_rest, vid=vid, spring=spring,
+        reset_counts=reset_counts, read_counts=read_counts, only=only)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1671,6 +2061,9 @@ def main() -> None:
     assert (last[cube[:, 1] <= 0.15, 1] - cube[cube[:, 1] <= 0.15, 1]
             ).mean() < 0.0
 
+    # ---- main path 3: the non-fused render paths
+    render_launches = main_path_3(path3)
+
     # ---- every (kernel, mode, width) with its launches on its main path:
     # field kernel, the Newton frame (Wd 64) and the wide fidelity oracle
     # (Wd 128); tile kernel, main path 1 (deformed) and main path 2 (the
@@ -1691,11 +2084,14 @@ def main() -> None:
 
     def bf16_field(wd):
         """The field rows' bf16 reading (the rows themselves are f32) and
-        the bf16 kernel's launches in the Newton frame under -O."""
+        the bf16 kernel's launches in the Newton frame under -O; at Wd 64
+        also the f32 kernel's launches in main_render's frame."""
         r = field_rows[wd]["bfloat16"]
+        extra = ({"main_render_launches": render_launches["w64_float32"]}
+                 if wd == 64 else {})
         return dict(bf16_launches=newton16_launches[wd], bf16_ms=r["ms"],
                     bf16_max_abs_err=r["rgb_max_abs"],
-                    bf16_bound_ms=r["bound_ms"])
+                    bf16_bound_ms=r["bound_ms"], **extra)
 
     fsrc = ("pienerf_tpu_torch/csrc/field_kernel.cu",
             "pienerf_tpu/ops/pallas/field_kernel.py:134")

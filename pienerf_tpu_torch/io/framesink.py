@@ -35,6 +35,26 @@ def write_png(path: str, frame: np.ndarray) -> None:
         f.write(png)
 
 
+def read_png(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of a PNG that ``write_png`` wrote (8-bit RGB,
+    filter 0 on every row); no other PNG is read."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if (raw[:, 0] != 0).any():
+        raise ValueError(f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
 class FrameSink:
     """Push RGB frames; worker threads encode them and write them to disk.
     Use as a context manager: leaving it waits for every frame."""

@@ -78,8 +78,9 @@ def _load_field(cfg, device):
 
     if cfg.backbone != "mlp":
         raise NotImplementedError(
-            f"backbone {cfg.backbone!r}: only the mlp backbone is ported "
-            f"(hashgrid: ROADMAP.md queue 1 item 8); pass --backbone mlp")
+            f"backbone {cfg.backbone!r}: the interactive frames serve the "
+            f"mlp backbone, as the JAX package's do; a hashgrid field "
+            f"renders through pipeline.frame_step; pass --backbone mlp")
     spec = network.make_spec(bound=cfg.bound,
                              compute_dtype=cfg.compute_dtype)
     path = _checkpoint_path(cfg)
@@ -87,8 +88,9 @@ def _load_field(cfg, device):
     if path is not None and os.path.exists(path):
         if path.endswith(".pth"):
             raise NotImplementedError(
-                f"{path}: only native .npz checkpoints load; the .pth "
-                "import (load_torch_ngp) is ROADMAP.md queue 1 item 8")
+                f"{path}: the interactive frames load native .npz mlp "
+                "checkpoints; a reference .pth (a hashgrid field) imports "
+                "through io.checkpoint.load_torch_ngp for pipeline.frame_step")
         tree, _ = load_native(path)
         params = tree.get("params", tree)
         if _params_finite(params):

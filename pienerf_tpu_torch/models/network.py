@@ -1,10 +1,15 @@
-"""Radiance field of the mlp backbone: Fourier features -> sigma MLP;
-SH4(d) + geo features -> color MLP.
+"""Radiance field: position encoding -> sigma MLP; SH4(d) + geo features
+-> color MLP; optionally a background net on a sphere.
 
-Port of ``pienerf_tpu.models.network`` for ``backbone="mlp"`` (the
-hashgrid backbone is not ported yet; ROADMAP.md queue 1 item 10). Weights
-are bias-free and stored ``[in, out]`` as in the JAX params tree, so a
-checkpoint carries across without transposes.
+Port of ``pienerf_tpu.models.network``, forward only, for both backbones:
+``mlp`` (Fourier features; the fused kernels read its layout) and
+``hashgrid`` (the reference's multiresolution hash encoding, with its
+embeddings as a parameter). ``bg_radius > 0`` adds ``encoder_bg`` (a 2-D
+hash grid of 4 levels) and ``bg_net`` (reference nerf/network.py:74-95).
+Weights are bias-free and stored ``[in, out]`` as in the JAX params tree,
+so a checkpoint carries across without transposes. Unlike the JAX
+package, ``make_spec`` defaults to the mlp backbone, which every fused
+path of the port serves; pass ``backbone="hashgrid"`` for the other.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from pienerf_tpu_torch.models import freq_encoder
+from pienerf_tpu_torch.models import freq_encoder, hash_encoder
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
 
 
@@ -30,7 +35,7 @@ SH_DIM = 16                       # degree-4 SH direction features
 
 
 class NetworkSpec(NamedTuple):
-    """Static architecture description of the mlp backbone."""
+    """Static architecture description (hashable)."""
     n_freqs: int = 8
     num_layers: int = 4
     hidden_dim: int = 64
@@ -38,15 +43,36 @@ class NetworkSpec(NamedTuple):
     hidden_dim_color: int = 64
     bound: float = 1.0
     compute_dtype: str = "float32"
+    backbone: str = "mlp"
+    grid: Optional[hash_encoder.HashGridSpec] = None
+    bg_radius: float = -1.0
+    grid_bg: Optional[hash_encoder.HashGridSpec] = None
+    num_layers_bg: int = 2
+    hidden_dim_bg: int = 64
 
     @property
     def sigma_in_dim(self) -> int:
-        return freq_encoder.output_dim(3, self.n_freqs)
+        if self.backbone == "mlp":
+            return freq_encoder.output_dim(3, self.n_freqs)
+        return self.grid.output_dim
 
 
 def make_spec(bound: float = 1.0, compute_dtype: str = "float32",
+              backbone: str = "mlp", bg_radius: float = -1.0,
               **kw) -> NetworkSpec:
-    return NetworkSpec(bound=bound, compute_dtype=compute_dtype, **kw)
+    """The JAX package's ``make_spec``: the hashgrid backbone takes the
+    default grid at ``desired_resolution`` 2048 * bound and a 2-layer sigma
+    net; ``bg_radius > 0`` adds the background grid."""
+    grid = grid_bg = None
+    if backbone == "hashgrid":
+        grid = hash_encoder.make_spec(desired_resolution=2048 * bound)
+        kw.setdefault("num_layers", 2)
+    if bg_radius > 0:
+        grid_bg = hash_encoder.make_spec(input_dim=2, num_levels=4,
+                                         desired_resolution=2048)
+    return NetworkSpec(bound=bound, compute_dtype=compute_dtype,
+                       backbone=backbone, grid=grid, bg_radius=bg_radius,
+                       grid_bg=grid_bg, **kw)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -59,6 +85,11 @@ def layer_dims(spec: NetworkSpec) -> Tuple[list, list]:
     color = ([SH_DIM + GEO_FEAT_DIM]
              + [spec.hidden_dim_color] * (spec.num_layers_color - 1) + [3])
     return sigma, color
+
+
+def bg_dims(spec: NetworkSpec) -> list:
+    return ([spec.grid_bg.output_dim + SH_DIM]
+            + [spec.hidden_dim_bg] * (spec.num_layers_bg - 1) + [3])
 
 
 def mlp_chain(layers, h: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -76,8 +107,11 @@ def mlp_chain(layers, h: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
 
 
 class FieldMLP(nn.Module):
-    """The mlp-backbone field. ``sigma_net[i]`` / ``color_net[i]`` are
-    ``[in, out]`` weight matrices."""
+    """The field. ``sigma_net[i]`` / ``color_net[i]`` / ``bg_net[i]`` are
+    ``[in, out]`` weight matrices; ``encoder`` (hashgrid) and
+    ``encoder_bg`` (bg_radius > 0) the hash embeddings. The generator draws
+    the nets first, then the embeddings, so an mlp field of a seed is the
+    same field it always was."""
 
     def __init__(self, spec: NetworkSpec,
                  generator: Optional[torch.Generator] = None,
@@ -97,12 +131,27 @@ class FieldMLP(nn.Module):
             [init(sd[i], sd[i + 1]) for i in range(spec.num_layers)])
         self.color_net = nn.ParameterList(
             [init(cd[i], cd[i + 1]) for i in range(spec.num_layers_color)])
+        if spec.bg_radius > 0:
+            bd_ = bg_dims(spec)
+            self.bg_net = nn.ParameterList(
+                [init(bd_[i], bd_[i + 1]) for i in range(spec.num_layers_bg)])
+        if spec.backbone == "hashgrid":
+            self.encoder = nn.Parameter(hash_encoder.init_embeddings(
+                spec.grid, generator, device), requires_grad=False)
+        if spec.bg_radius > 0:
+            self.encoder_bg = nn.Parameter(hash_encoder.init_embeddings(
+                spec.grid_bg, generator, device), requires_grad=False)
 
     def density(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [N, 3] (or 3 component tensors) -> (sigma [N], geo [15, N])."""
         cdt = torch_dtype(self.spec.compute_dtype)
-        enc = freq_encoder.freq_encode(x, self.spec.n_freqs, self.spec.bound,
-                                       feature_major=True)
+        if self.spec.backbone == "mlp":
+            enc = freq_encoder.freq_encode(x, self.spec.n_freqs,
+                                           self.spec.bound,
+                                           feature_major=True)
+        else:
+            enc = hash_encoder.encode(self.encoder, self.spec.grid, x,
+                                      self.spec.bound, feature_major=True)
         h = mlp_chain(list(self.sigma_net), enc, cdt).float()
         return trunc_exp(h[0]), h[1:]
 
@@ -118,3 +167,14 @@ class FieldMLP(nn.Module):
         """(sigma [N], rgb [N, 3])."""
         sigma, geo = self.density(x)
         return sigma, self.color(d, geo)
+
+    def background(self, sph, d) -> torch.Tensor:
+        """Background sphere color (reference nerf/network.py:133-148):
+        sph [N, 2] in [-1, 1] (or components), d [N, 3] -> rgb [N, 3]."""
+        cdt = torch_dtype(self.spec.compute_dtype)
+        h_pos = hash_encoder.encode(self.encoder_bg, self.spec.grid_bg, sph,
+                                    1.0, feature_major=True)
+        enc_d = sh_encode(d, feature_major=True)
+        h = torch.cat([enc_d.to(cdt), h_pos.to(cdt)], dim=0)
+        h = mlp_chain(list(self.bg_net), h, cdt).float()
+        return torch.sigmoid(h).T

@@ -17,6 +17,8 @@ gather along a per-node list built once in ``sim_init`` and a sum along a
 fixed axis: no float ``index_add_`` and no atomics, so two steps from the
 same state agree bit for bit on the card.
 
+``Simulator`` is the reference's stateful interface over these functions.
+
 Conventions: dof [K, 10, 3]; F[d, c] = d phi_d / d p_c;
 dF[j, d, c] = d^2 phi_d / (d p_c d p_j).
 """
@@ -527,3 +529,74 @@ def point_positions(consts: SimConstants, state: SimState) -> torch.Tensor:
     ddof_g = state.ddof[consts.pts_kernel]
     return consts.pts_rest + torch.einsum("via,viad->vd", consts.pts_Nx,
                                           ddof_g)
+
+
+# ---------------------------------------------------------------------------
+# the reference's stateful interface
+# ---------------------------------------------------------------------------
+
+class Simulator:
+    """Stateful facade mirroring the reference Simulator (solver.py:12-617)
+    over the functions above.
+
+    ``substeps``: each ``stepforward`` runs ``substeps`` steps of dt /
+    substeps (1 = the reference). ``bf16_b``: bf16 operator storage
+    (``cast_B_bf16``). ``cache_dir``: keep the one-time f64 precompute
+    per scene (``sim_init_cached``)."""
+
+    def __init__(self, dt=1e-2, iters=20, bbox=(1.0, 1.0, 1.0), kres=7,
+                 dx=1.0, gravity=(0.0, -9.8, 0.0), stiff=1e5,
+                 base=(-0.5, -0.5, -0.5), substeps=1, bf16_b=False,
+                 cache_dir: Optional[str] = None,
+                 device: torch.device = torch.device("cpu")):
+        self.substeps = int(substeps)
+        self._cfg = dict(dt=dt / self.substeps, iters=iters,
+                         bbox=np.asarray(bbox, np.float64), kres=kres, dx=dx,
+                         gravity=gravity, stiff=stiff,
+                         base=np.asarray(base, np.float64), device=device)
+        self.bf16_b = bool(bf16_b)
+        self.cache_dir = cache_dir
+        self.device = device
+        self.consts: Optional[SimConstants] = None
+        self.state: Optional[SimState] = None
+        self.aux: Optional[dict] = None
+        self.dx = dx
+        self.dt = dt
+
+    def InitializeFromPly(self, path: str) -> None:
+        from pienerf_tpu_torch.io.ply import read_physics_ply
+        d = read_physics_ply(path)
+        self.initialize(d["pos"], d["mass"], d["mu"], d["lam"], d["pin"])
+
+    def initialize(self, pos, mass, mu, lam, is_pin) -> None:
+        if self.cache_dir:
+            self.consts, self.state, self.aux = sim_init_cached(
+                pos, mass, mu, lam, is_pin, cache_dir=self.cache_dir,
+                **self._cfg)
+        else:
+            self.consts, self.state, self.aux = sim_init(
+                pos, mass, mu, lam, is_pin, **self._cfg)
+        if self.bf16_b:
+            self.consts = cast_B_bf16(self.consts)
+
+    def stepforward(self) -> None:
+        for _ in range(self.substeps):
+            self.state = sim_step(self.consts, self.state)
+
+    def get_IP_info(self):
+        return get_ip_info(self.consts, self.state)
+
+    def update_force(self, vid: int, f) -> None:
+        self.state = update_force(self.consts, self.state, int(vid),
+                                  torch.as_tensor(f, dtype=torch.float32,
+                                                  device=self.device))
+
+    def clear_force(self) -> None:
+        self.state = clear_force(self.state)
+
+    def update_pos(self) -> np.ndarray:
+        return point_positions(self.consts, self.state).cpu().numpy()
+
+    def OutputToPly(self, path: str) -> None:
+        from pienerf_tpu_torch.io.ply import write_ply
+        write_ply(path, self.update_pos())

@@ -11,7 +11,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from pienerf_tpu_torch.models.network import FieldMLP, NetworkSpec, layer_dims
+from pienerf_tpu_torch.models.network import (FieldMLP, NetworkSpec,
+                                              bg_dims, layer_dims)
 from pienerf_tpu_torch.sim.solver import (SimConstants, SimState,
                                           node_gather_list)
 
@@ -19,11 +20,26 @@ from pienerf_tpu_torch.sim.solver import (SimConstants, SimState,
 def field_from_numpy(tree: Mapping[str, Any], spec: NetworkSpec,
                      device) -> FieldMLP:
     """A params tree {"sigma_net": [...], "color_net": [...]} of [in, out]
-    arrays -> FieldMLP on ``device`` (shapes checked against ``spec``)."""
+    arrays, with "encoder" (hashgrid) and "encoder_bg" / "bg_net"
+    (bg_radius > 0) where the spec has them -> FieldMLP on ``device``
+    (shapes checked against ``spec``)."""
     field = FieldMLP(spec, device=device)
     sd, cd = layer_dims(spec)
-    for name, dims, plist in (("sigma_net", sd, field.sigma_net),
-                              ("color_net", cd, field.color_net)):
+    nets = [("sigma_net", sd, field.sigma_net),
+            ("color_net", cd, field.color_net)]
+    embs = []
+    if spec.backbone == "hashgrid":
+        embs.append(("encoder", field.encoder))
+    if spec.bg_radius > 0:
+        nets.append(("bg_net", bg_dims(spec), field.bg_net))
+        embs.append(("encoder_bg", field.encoder_bg))
+    for name, p in embs:
+        a = np.array(tree[name], np.float32)
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"{name} has shape {a.shape}, spec wants "
+                             f"{tuple(p.shape)}")
+        p.data.copy_(torch.from_numpy(a))
+    for name, dims, plist in nets:
         arrs = list(tree[name])
         if len(arrs) != len(plist):
             raise ValueError(f"{name}: {len(arrs)} layers, spec has "

@@ -115,7 +115,19 @@ def test_port_imports_leave_jax_out():
             "pienerf_tpu_torch.render.pipeline, pienerf_tpu_torch.main_gui, "
             "pienerf_tpu_torch.main_sim, pienerf_tpu_torch.kernels.probes, "
             "pienerf_tpu_torch.tools.gather_probe, "
-            "pienerf_tpu_torch.tools.micro_floor; "
+            "pienerf_tpu_torch.tools.micro_floor, "
+            "pienerf_tpu_torch.ops.morton, pienerf_tpu_torch.ops.grid, "
+            "pienerf_tpu_torch.data.rays, pienerf_tpu_torch.data.provider, "
+            "pienerf_tpu_torch.ops.raymarch, "
+            "pienerf_tpu_torch.models.hash_encoder, "
+            "pienerf_tpu_torch.models.network, "
+            "pienerf_tpu_torch.render.renderer, "
+            "pienerf_tpu_torch.render.fast, "
+            "pienerf_tpu_torch.ops.spatial_hash, "
+            "pienerf_tpu_torch.ops.bending, "
+            "pienerf_tpu_torch.render.deformed, "
+            "pienerf_tpu_torch.sim.solver, pienerf_tpu_torch.io.checkpoint, "
+            "pienerf_tpu_torch.main_render; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pienerf_tpu' or "
             "m.startswith('pienerf_tpu.')]; print(bad); "
