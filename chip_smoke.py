@@ -37,7 +37,21 @@ entry points at full width on the trained checkpoint:
     runs it on dumps of the deformed frame's state (its PNG equal to
     render_frame's image, the field kernel launched). Each render is held
     against the port's CPU run on a subset of its rays, from the same
-    inputs and draws.
+    inputs and draws;
+  main path 4, train -> distill -> serve: a blender-layout dataset of the
+    sphere (40 + 4 views at 800x800, integrated on the card); one f32 train
+    step on each path (the hash grid's occupancy march, the mlp's
+    hierarchical renderer) held against the port's CPU from the same state
+    and draws; each trainer's ms a step and device idle share, and the
+    plain hash encode's forward + backward inside a hash-grid step;
+    main_train on the mlp (bf16, 4096 rays, 256 samples, 300 steps) and
+    on the default hash grid (2,000 steps), their losses falling, the hash
+    grid's point cloud not empty; main_distill --student_width 128 on the
+    hash grid's workspace; field_agreement against the untrained
+    student's; image_agreement at 800x800 through the tile kernel's static
+    mode (held against its plain version at >= 100 dB); main_gui --ckpt
+    latest serving the student on the field kernel, and its first Newton
+    frame in process held against the same frame on the plain field.
 
 The bf16 instantiations of both kernels run the field MLP on the tensor
 cores, the f32 ones on the CUDA cores: the build phase reports every
@@ -987,6 +1001,401 @@ def main_path_3(c) -> dict:
     assert inproc == c.only(field_w64=inproc["field_w64"])
     assert inproc["field_w64"] > 0
     return mr_launches
+
+
+# main path 4 at full width: the sphere at 800x800, 40 training views and
+# 4 held out; the mlp trained at runs/quality_mlp_800/summary.json's
+# configuration (bf16, 4096 rays, 256 samples, lr decay 1e-5), the hash
+# grid at the default width (16 levels x 2, 2^19 rows, 64-wide nets, 64
+# samples, a grid update every 16 steps), the 128-wide student distilled
+# from it; depth cut to 300 mlp steps and 2,000 hash-grid steps (the EMA,
+# decayed 0.95^(1/40) a step, keeps 0.95^50 = 7.7% of the random init
+# after 2,000: the distilled teacher is a trained field)
+TRAIN = dict(hw=800, n_train=40, n_val=4, iters={"mlp": 300,
+                                                 "hashgrid": 2000},
+             distill_steps=1000, distill_batch=8192, num_rays=4096,
+             cmp_rays=1024, prof_steps=32, agree_views=2)
+CKPT_CHUNK = 500   # steps between the trainer's checkpoints (Trainer.train)
+G_FLOOR = 1e-6     # |g| / max|g| of its leaf above which params compare
+MAX_FLIPS = 2      # the CPU parity test's flips a leaf (or 1e-4 of those
+#                    below the floor, on the card's millions of rows)
+
+
+def step_profile(prof, n_steps: int, ms_per_step: float) -> dict:
+    """Device busy ms a step (union of kernel and copy spans) and the idle
+    share of the unprofiled step, from a torch.profiler run of n_steps."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    busy, end = 0.0, float("-inf")
+    for s, t in spans:
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    busy_ms = busy / 1e3 / n_steps
+    return dict(steps=n_steps, device_busy_ms=busy_ms,
+                device_events_per_step=len(spans) / n_steps,
+                ms_per_step_unprofiled=ms_per_step,
+                device_idle_share=1.0 - busy_ms / ms_per_step)
+
+
+def main_path_4(c, sz=TRAIN) -> dict:
+    """Main path 4: train -> distill -> serve, through the entry points.
+    A blender-layout dataset of the sphere rendered on the card; one f32
+    train step on each path held against the port's CPU from the same
+    state and draws; each trainer's ms a step, device idle share and (hash
+    grid) the plain encode's forward + backward, in process; main_train
+    (mlp, then hash grid) and main_distill as subprocesses; the student's
+    field_agreement against the untrained student's, its image_agreement
+    through the tile kernel's static mode (held against its plain version)
+    and main_gui serving it. Returns the launches of the tile kernel in
+    image_agreement and of the field kernel in main_gui."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pienerf_tpu_torch import main_gui
+    from pienerf_tpu_torch.config import get_shared_opts
+    from pienerf_tpu_torch.data import synthetic
+    from pienerf_tpu_torch.data.provider import NeRFDataset
+    from pienerf_tpu_torch.data.rays import get_rays_sampled
+    from pienerf_tpu_torch.io.checkpoint import load_native
+    from pienerf_tpu_torch.kernels import field as fk
+    from pienerf_tpu_torch.models import hash_encoder, network
+    from pienerf_tpu_torch.ops import grid as gridlib
+    from pienerf_tpu_torch.render import interactive, renderer
+    from pienerf_tpu_torch.train import distill
+    from pienerf_tpu_torch.train import trainer as ttr
+    from pienerf_tpu_torch.weights import field_from_numpy
+
+    dev, cpu, tk = c.dev, torch.device("cpu"), c.tk
+    root = os.path.join(ROOT, "build", "smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    hw, n_tr, n_va = sz["hw"], sz["n_train"], sz["n_val"]
+    f = 0.9 * hw
+    intr = (f, f, hw / 2.0, hw / 2.0)
+
+    # ---- the dataset: RGBA views of the sphere, integrated on the card
+    # (the same function as the host's numpy integral, held to it on a
+    # 64x64 view: premultiplied color and alpha, since the straight color
+    # of a pixel the sphere barely touches is a ratio of two near-zeros),
+    # written as a blender-layout directory
+    poses = synthetic.orbit_poses(n_tr + n_va, seed=0)
+    sm = (0.9 * 64, 0.9 * 64, 32.0, 32.0)
+    pair = [synthetic.render_gt(poses[0], sm, 64, 64, alpha=True, device=d)
+            for d in (dev, None)]
+    gt_err = float(np.abs(np.concatenate(
+        [pair[0][..., :3] * pair[0][..., 3:], pair[0][..., 3:]], -1)
+        - np.concatenate([pair[1][..., :3] * pair[1][..., 3:],
+                          pair[1][..., 3:]], -1)).max())
+    t0 = time.perf_counter()
+    imgs = [synthetic.render_gt(p, intr, hw, hw, alpha=True, device=dev)
+            for p in poses]
+    t_gt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    synthetic.write_blender(data, {"train": (poses[:n_tr], imgs[:n_tr]),
+                                   "val": (poses[n_tr:], imgs[n_tr:])},
+                            intr, hw, hw)
+    emit("train_dataset", views=[n_tr, n_va],
+         hw=hw, gt_seconds=t_gt, write_seconds=time.perf_counter() - t0,
+         card_vs_host_max_abs=gt_err)
+    assert gt_err <= 1e-6, gt_err
+
+    common = ["--path", data, "--bound", "1.0", "--scale", "1.0",
+              "--dt_gamma", "0", "--num_rays", str(sz["num_rays"])]
+    paths = {"mlp": ["--backbone", "mlp", "--fp16", "--train_max_samples",
+                     "256", "--lr_decay_rate", "1e-5"],
+             "hashgrid": ["--backbone", "hashgrid", "--train_max_samples",
+                          "64", "--update_extra_interval", "16"]}
+    for name in paths:
+        paths[name] += ["--iters", str(sz["iters"][name])]
+
+    # ---- one f32 step on each path, card against CPU, same state/draws
+    view = torch.as_tensor(imgs[0]).reshape(hw * hw, 4)
+    for name in ("hashgrid", "mlp"):
+        cfg = get_shared_opts(args=common + paths[name])
+        k = cfg.train_max_samples
+        spec = network.make_spec(bound=1.0, backbone=name)
+        tree = network.init_params(torch.Generator().manual_seed(0), spec)
+        st = renderer.RenderSettings(
+            bound=1.0, cascade=cfg.cascade, min_near=cfg.min_near,
+            dt_gamma=0.0, max_steps=cfg.max_steps, T_thresh=cfg.T_thresh,
+            max_samples=k)
+        g = torch.Generator().manual_seed(1)
+        n = sz["cmp_rays"]
+        inds = torch.randint(0, hw * hw, (n,), generator=g)
+        ro, rd = get_rays_sampled(torch.as_tensor(poses[0]), intr, hw, hw,
+                                  inds)
+        batch = {"rays_o": ro, "rays_d": rd, "pixels": view[inds]}
+        draws = {"bg": torch.rand((n, 3), generator=g)}
+        if name == "mlp":
+            draws["u_coarse"] = torch.rand((n, k // 2), generator=g)
+            draws["u_fine"] = torch.rand((n, k - k // 2), generator=g)
+        else:
+            draws["noise"] = torch.rand((n,), generator=g)
+        grid = gridlib.init(cfg.cascade, cpu)
+        dens = torch.full_like(grid.density, 20.0)
+        bitfield = gridlib.packbits(dens, 10.0)
+        res = []
+        for d in (dev, cpu):
+            field = field_from_numpy(tree, spec, d, trainable=True)
+            opt = ttr.make_optimizer(cfg.lr, cfg.iters, cfg.lr_decay_rate)
+            step = ttr.make_train_step(spec, st, opt, ema_decay=0.95,
+                                       use_fast_path=name == "mlp")
+            state, m = step(ttr.init_state(field, opt), bitfield.to(d),
+                            {a: b.to(d) for a, b in batch.items()},
+                            draws={a: b.to(d) for a, b in draws.items()})
+            res.append((float(m["loss"]), [q.cpu() for q in m["grads"]],
+                        [q.detach().cpu() for q in state.params.leaves()]))
+        (lc, gc, pc), (lh, gh, ph) = res
+        grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(gc, gh))
+        p_err, flips, below, flips_ok = 0.0, [], [], True
+        for a, b, gg in zip(pc, ph, gh):
+            big = gg.abs() > G_FLOOR * gg.abs().max()
+            if big.any():
+                p_err = max(p_err, float((a - b)[big].abs().max()))
+            fl = int(((a - b).abs() > 1e-6)[~big].sum())
+            flips.append(fl)
+            below.append(int((~big).sum()))
+            flips_ok &= fl <= max(MAX_FLIPS, 1e-4 * below[-1])
+        loss_rel = abs(lc / lh - 1.0)
+        emit("train_step_card_vs_cpu", path=name, rays=n, samples=k,
+             loss_card=lc, loss_cpu=lh, loss_rel=loss_rel,
+             grad_max_rel=grad_rel, param_max_abs=p_err,
+             flips_below_floor=flips, below_floor=below)
+        assert np.isfinite(lc) and loss_rel <= 1e-5, (lc, lh)
+        assert p_err <= 1e-6 and flips_ok, (p_err, flips, below)
+
+    # ---- each trainer in process on the card: ms a step, idle share;
+    # for the hash grid the plain encode's forward + backward alone at a
+    # step's live samples
+    prof_rows = {}
+    for name in ("mlp", "hashgrid"):
+        cfg = get_shared_opts(args=common + paths[name] + [
+            "--workspace", os.path.join(root, f"prof_{name}")])
+        ds = NeRFDataset(cfg, type="train")
+        tr = ttr.Trainer("ngp", cfg, use_checkpoint="scratch", device=dev)
+        tr.train_iterations(ds, 16)                     # warm-up
+        n = sz["prof_steps"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_iterations(ds, n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.train_iterations(ds, n)
+            torch.cuda.synchronize()
+        row = step_profile(prof, n, ms)
+        if name == "hashgrid":
+            field, seen = tr.state.params, {}
+            density = field.density
+
+            def record(x, _density=density):
+                if torch.is_grad_enabled():
+                    seen["x"] = tuple(v.detach() for v in x)
+                return _density(x)
+
+            field.density = record
+            tr.train_iterations(ds, 1)
+            del field.density
+            xs = seen["x"]
+            emb = field.encoder
+            cot = torch.randn((tr.spec.grid.output_dim, xs[0].shape[0]),
+                              device=dev)
+
+            def fwd():
+                return hash_encoder.encode(emb, tr.spec.grid, xs, 1.0,
+                                           feature_major=True)
+
+            def fwd_bwd():
+                return torch.autograd.grad(fwd(), emb, grad_outputs=cot)
+
+            with torch.no_grad():
+                enc_f = cuda_ms(fwd, 10)
+            enc_fb = cuda_ms(fwd_bwd, 10)
+            row.update(encode_points=int(xs[0].shape[0]),
+                       encode_fwd_ms=enc_f, encode_fwd_bwd_ms=enc_fb,
+                       encode_share_of_step=enc_fb / ms)
+        emit("train_profile", path=name, **row)
+        prof_rows[name] = row
+        del tr, ds
+        torch.cuda.empty_cache()
+
+    # ---- main_train as a user runs it: the mlp, then the hash grid
+    def run(phase, module, args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
+                           capture_output=True, text=True, timeout=900)
+        emit(phase, rc=r.returncode, seconds=time.perf_counter() - t0,
+             tail=r.stdout.strip().splitlines()[-4:])
+        assert r.returncode == 0, r.stderr[-4000:]
+        return r.stdout
+
+    def ply_vertices(path):
+        with open(path, "rb") as fh:
+            head = fh.read(4096).split(b"end_header")[0].decode("ascii")
+        return int(re.findall(r"element vertex (\d+)", head)[0])
+
+    ws, ck_last = {}, {}
+    for name in ("mlp", "hashgrid"):
+        ws[name] = os.path.join(root, f"ws_{name}")
+        out = run(f"main_train_{name}", "pienerf_tpu_torch.main_train",
+                  common + paths[name] + ["--workspace", ws[name]])
+        losses = np.load(os.path.join(ws[name], "train_losses.npy"))
+        psnr_val = float(re.findall(r"\[final eval\] PSNR=([\d.]+)",
+                                    out)[-1])
+        ck = sorted(os.listdir(os.path.join(ws[name], "checkpoints")))
+        val = sorted(os.listdir(os.path.join(ws[name], "validation")))
+        n_ck = -(-sz["iters"][name] // CKPT_CHUNK)
+        ck_last[name] = f"ngp_ep{n_ck:04d}.npz"
+        tree, _ = load_native(os.path.join(ws[name], "checkpoints",
+                                           ck_last[name]))
+        finite = all(np.isfinite(np.asarray(a)).all()
+                     for v in tree["params"].values()
+                     for a in (v if isinstance(v, list) else [v]))
+        first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+        pc_vertices = ply_vertices(os.path.join(ws[name], "point_cloud.ply"))
+        if name == "hashgrid":
+            # a trained EMA field has geometry above the density threshold
+            assert pc_vertices > 0, pc_vertices
+        emit(f"train_{name}", steps=int(losses.size),
+             loss_start=float(losses[0]), loss_end=float(losses[-1]),
+             loss_first50=first, loss_last50=last, heldout_psnr=psnr_val,
+             ms_per_step=prof_rows[name]["ms_per_step_unprofiled"],
+             device_idle_share=prof_rows[name]["device_idle_share"],
+             checkpoints=ck, validation_pngs=len(val),
+             point_cloud_vertices=pc_vertices)
+        assert np.isfinite(losses).all() and finite
+        assert last < first, (first, last)
+        assert ck == [f"ngp_ep{e:04d}.npz{x}" for e in range(
+            max(n_ck - 1, 1), n_ck + 1) for x in ("", ".json")], ck
+        assert len(val) == 2 * n_va, val
+
+    # ---- main_distill: the 128-wide student of the hash grid
+    out = run("main_distill", "pienerf_tpu_torch.main_distill", [
+        "--workspace", ws["hashgrid"], "--bound", "1.0", "--student_width",
+        "128", "--steps", str(sz["distill_steps"]), "--batch",
+        str(sz["distill_batch"])])
+    ckdir = os.path.join(ws["hashgrid"], "checkpoints")
+    n_ck = int(ck_last["hashgrid"][6:10])
+    student_ck = f"ngp_ep{n_ck + 1:04d}.npz"
+    assert sorted(os.listdir(ckdir))[-2:] == [
+        student_ck, student_ck + ".json"], os.listdir(ckdir)
+    t_tree, _ = load_native(os.path.join(ckdir, ck_last["hashgrid"]))
+    s_tree, _ = load_native(os.path.join(ckdir, student_ck))
+    t_spec = network.make_spec(bound=1.0, backbone="hashgrid")
+    s_spec = distill.make_student_spec(t_spec, 128)
+    teacher = field_from_numpy(t_tree["ema_params"], t_spec, dev)
+    student = field_from_numpy(s_tree["ema_params"], s_spec, dev)
+    untrained = network.FieldMLP(s_spec, torch.Generator().manual_seed(0),
+                                 device=dev)
+    fa = distill.field_agreement(teacher, t_spec, student, s_spec)
+    fa0 = distill.field_agreement(teacher, t_spec, untrained, s_spec)
+    emit("field_agreement", student=fa, untrained=fa0)
+    assert fa["sigma_logmse"] < fa0["sigma_logmse"], (fa, fa0)
+
+    # ---- image_agreement at 800x800: the student through the tile
+    # kernel's static mode, its first pass held against the plain version;
+    # the teacher's occupancy grid built from the teacher's EMA weights by
+    # image_agreement itself (six full updates, as the JAX package does:
+    # the checkpoint's grid follows the raw params, which the EMA lags)
+    kernel, calls = tk.render_tiles, []
+
+    def capture(*args, **kw):
+        out = kernel(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    capture.launches = kernel.launches
+    tk.render_tiles = capture
+    c.reset_counts()
+    t0 = time.perf_counter()
+    ia = distill.image_agreement(teacher, t_spec, student, s_spec,
+                                 poses[n_tr:n_tr + sz["agree_views"]], intr,
+                                 hw, hw)
+    torch.cuda.synchronize()
+    ia_s = time.perf_counter() - t0
+    ia_launches = c.read_counts()
+    kernel.launches = tk.render_tiles.launches
+    tk.render_tiles = kernel
+    args, kw, ko = calls[0]
+    po = tk.render_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    vs_plain = psnr(ko[:, 0:3].cpu().numpy(), po[:, 0:3].cpu().numpy())
+    key = f"tile_static_w{s_spec.hidden_dim}"
+    emit("image_agreement", views=sz["agree_views"], hw=hw, seconds=ia_s,
+         psnr_per_view=ia["psnr_per_view"], ssim_per_view=ia["ssim_per_view"],
+         psnr_mean=ia["psnr_mean"], ssim_mean=ia["ssim_mean"],
+         launches={k: v for k, v in ia_launches.items() if v},
+         tile_vs_plain_db=vs_plain, student_dtype=s_spec.compute_dtype)
+    assert ia_launches == c.only(**{key: sz["agree_views"]}), ia_launches
+    assert vs_plain >= TILE_BF16_DB_STATIC, vs_plain
+    assert all(np.isfinite(ia["psnr_per_view"]))
+
+    # ---- main_gui serving the student (--ckpt latest), its Newton frame
+    # on the field kernel at the student's width
+    gui_out = os.path.join(root, "gui_frames")
+    gui_args = [
+        "--workspace", ws["hashgrid"], "--exp_name", "cube", "--backbone",
+        "mlp", "--ckpt", "latest", "--sim_dx", "0.2", "--bound", "1.0",
+        "--W", "400", "--H", "400", "--radius", "2.5", "--frames", "3",
+        "--out_dir", gui_out, "--kres", "4", "--timing_on"]
+    out = run("main_gui_student", "pienerf_tpu_torch.main_gui", gui_args)
+    gui_launches = json.loads(re.findall(r"kernel launches: (\{.*\})",
+                                         out)[-1])
+    pngs = sorted(os.listdir(gui_out))
+    emit("main_gui_student_launches", launches=gui_launches, pngs=pngs)
+    assert student_ck in out, out[-2000:]
+    assert pngs == [f"frame_{i:04d}.png" for i in range(3)], pngs
+    assert gui_launches.get("field_w128_float32", 0) > 0, gui_launches
+
+    # ---- the same Newton frame in process, with main_gui's own set-up
+    # (its flags, the student from --ckpt latest, the cube's first sim
+    # step), rendered through the field kernel and again with its plain
+    # version swapped in: the f32 kernel-vs-plain limit (1e-4 max abs) on
+    # the frame, as the tile kernel's f32 checks hold it
+    cwd = os.getcwd()
+    os.chdir(ROOT)              # main_gui reads assets/{exp_name}.ply
+    try:
+        app = main_gui.setup(gui_args)
+    finally:
+        os.chdir(cwd)
+    assert (app.spec.hidden_dim, app.spec.compute_dtype) == (128, "float32")
+    _, pack, p_def = main_gui.newton_sim(app, app.state, 0)
+    c.reset_counts()
+    out_k = main_gui.newton_render(app, pack, p_def)
+    torch.cuda.synchronize()
+    nf_launches = c.read_counts()
+    interactive.field_kernel = types.SimpleNamespace(
+        field_eval=fk.field_eval_plain)
+    c.reset_counts()
+    try:
+        out_p = main_gui.newton_render(app, pack, p_def)
+    finally:
+        interactive.field_kernel = fk
+    assert c.read_counts() == c.only(), "the plain frame launched a kernel"
+    img_k, img_p = (interactive.tiles_to_image(o["tiles_image"], app.H,
+                                               app.W) for o in (out_k, out_p))
+    nf_err = float(np.abs(img_k - img_p).max())
+    emit("newton_frame_student", hw=[app.H, app.W],
+         n_active=int(out_k["n_active"]), max_abs_vs_plain=nf_err,
+         psnr_vs_plain=psnr(img_k, img_p), limit_max_abs=1e-4,
+         image_mean=float(img_k.mean()), launches={
+             k: v for k, v in nf_launches.items() if v})
+    assert bool(np.isfinite(img_k).all()) and img_k.std() > 0
+    assert nf_launches == c.only(field_w128=nf_launches["field_w128"])
+    assert nf_launches["field_w128"] > 0, nf_launches
+    assert nf_err <= 1e-4, nf_err
+    return {"tile_static_w128": ia_launches[key],
+            "field_w128": gui_launches["field_w128_float32"],
+            "train": {k: {"ms_per_step": v["ms_per_step_unprofiled"],
+                          "device_idle_share": v["device_idle_share"]}
+                      for k, v in prof_rows.items()}}
 
 
 def main() -> None:
@@ -2064,6 +2473,11 @@ def main() -> None:
     # ---- main path 3: the non-fused render paths
     render_launches = main_path_3(path3)
 
+    # ---- main path 4: train -> distill -> serve
+    path4 = types.SimpleNamespace(dev=dev, tk=tk, reset_counts=reset_counts,
+                                  read_counts=read_counts, only=only)
+    train_launches = main_path_4(path4)
+
     # ---- every (kernel, mode, width) with its launches on its main path:
     # field kernel, the Newton frame (Wd 64) and the wide fidelity oracle
     # (Wd 128); tile kernel, main path 1 (deformed) and main path 2 (the
@@ -2110,11 +2524,13 @@ def main() -> None:
         row("tile_kernel_cut", *tsrc, cut_launches["tile_cut_w64"],
             rows_c["cut"]),
         row("field_kernel_w128", *fsrc, wfid_launches["field_w128"],
-            field_rows[128]["float32"], **bf16_field(128)),
+            field_rows[128]["float32"], **bf16_field(128),
+            train_path_launches=train_launches["field_w128"]),
         row("tile_kernel_w128", *tsrc, wframe_launches["tile_deformed_w128"],
             tile_row_w),
         row("tile_kernel_static_w128", *tsrc,
-            wcut_launches["tile_static_w128"], rows_c["static_w128"]),
+            wcut_launches["tile_static_w128"], rows_c["static_w128"],
+            train_path_launches=train_launches["tile_static_w128"]),
         row("tile_kernel_cut_w128", *tsrc, wcut_launches["tile_cut_w128"],
             rows_c["cut_w128"]),
         # the schedules: the paired deformed mode and block_tiles on their

@@ -52,9 +52,10 @@ def pack_weights(params, spec: NetworkSpec, device) -> torch.Tensor:
                                    + list(params["color_net"]))
     out = torch.zeros((len(layers), wd, wd), dtype=torch.float32,
                       device=device)
-    for i, w in enumerate(layers):
-        w = torch.as_tensor(w, dtype=torch.float32, device=device)
-        out[i, :w.shape[0], :w.shape[1]] = w
+    with torch.no_grad():            # a trainable field packs as a frozen one
+        for i, w in enumerate(layers):
+            w = torch.as_tensor(w, dtype=torch.float32, device=device)
+            out[i, :w.shape[0], :w.shape[1]] = w
     return out
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
 import time
 
@@ -113,7 +114,13 @@ def _load_field(cfg, device):
     return spec, field_kernel.pack_weights(field, spec, device)
 
 
-def main(argv=None):
+def setup(argv=None):
+    """Parse main_gui's flags and build what its frames need: the field
+    (``_load_field``), the simulator on ``assets/{exp_name}.ply``, the
+    settings and the camera. Returns a namespace; ``newton_sim`` and
+    ``newton_render`` make one Newton frame from it."""
+    import types
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--frames", type=int, default=60,
                         help="headless mode: frames to write")
@@ -135,10 +142,9 @@ def main(argv=None):
     import torch
 
     from pienerf_tpu_torch.device import resolve_device
-    from pienerf_tpu_torch.io.framesink import FrameSink
     from pienerf_tpu_torch.io.ply import read_physics_ply
     from pienerf_tpu_torch.ops import beam_bend
-    from pienerf_tpu_torch.render import interactive, pipeline
+    from pienerf_tpu_torch.render import interactive
     from pienerf_tpu_torch.sim import solver as sim
     from pienerf_tpu_torch.utils.camera import OrbitCamera
 
@@ -180,18 +186,68 @@ def main(argv=None):
     H = (H // 16) * 16
     W = (W // 16) * 16
     cam = OrbitCamera(W, H, r=cfg.radius, fovy=cfg.fovy)
-    pose = torch.as_tensor(cam.pose, device=device)
-    fvec = torch.tensor(ns.force, dtype=torch.float32, device=device)
-    fused = cfg.max_iter_num == 1   # fast-Newton pack -> fused tile kernel
+    return types.SimpleNamespace(
+        cfg=cfg, ns=ns, device=device, spec=spec, pw=pw, consts=consts,
+        state=state, bst=bst, ist=ist, cut_bounds=cut_bounds, H=H, W=W,
+        cam=cam, pose=torch.as_tensor(cam.pose, device=device),
+        fvec=torch.tensor(ns.force, dtype=torch.float32, device=device),
+        fused=cfg.max_iter_num == 1)   # fast-Newton pack -> fused tile kernel
 
+
+def newton_sim(app, state, i):
+    """One sim step of a Newton frame: (new state, bend pack, IP
+    positions). Exits on a diverged sim."""
+    import torch
+
+    from pienerf_tpu_torch.ops import beam_bend
+    from pienerf_tpu_torch.sim import solver as sim
+
+    state = (sim.update_force(app.consts, state, app.ns.force_ip, app.fvec)
+             if app.ns.force_ip >= 0 else sim.clear_force(state))
+    state = sim.sim_step(app.consts, state)
+    p_def, F, dF = sim.get_ip_info(app.consts, state)
+    if not bool(torch.isfinite(p_def).all()):
+        raise SystemExit(
+            f"simulation diverged at frame {i} (NaN IP "
+            "positions); tune --sim_dt / --kres / mass / lam,mu "
+            "(the local-global scheme is conditionally stable, "
+            "matching the CUDA reference)")
+    pack = beam_bend.pack_for(app.bst, p_def, app.consts.ip_pos.float(), F,
+                              dF)
+    return state, pack, p_def
+
+
+def newton_render(app, pack, p_def):
+    """The Newton frame's render (``interactive.render_frame``, its field
+    through the field kernel) of one sim step's pack."""
+    from pienerf_tpu_torch.render import interactive
+
+    return interactive.render_frame(
+        app.ist, app.pw, pack, p_def, app.pose, app.cam.intrinsics, app.H,
+        app.W, 1.0, app.cut_bounds)
+
+
+def main(argv=None):
+    app = setup(argv)
+    cfg, ns = app.cfg, app.ns
+
+    import torch
+
+    from pienerf_tpu_torch.io.framesink import FrameSink
+    from pienerf_tpu_torch.kernels import field as field_kernel
+    from pienerf_tpu_torch.kernels import tile as tile_kernel
+    from pienerf_tpu_torch.render import interactive, pipeline
+
+    state = app.state
     os.makedirs(ns.out_dir, exist_ok=True)
     with FrameSink() as sink:
         t_prev = time.perf_counter()
         for i in range(ns.frames):
-            if fused:
+            if app.fused:
                 state, out = pipeline.interactive_frame_step(
-                    ist, consts, state, pw, pose, cam.intrinsics, H, W, 1.0,
-                    ns.force_ip, fvec, cut_bounds, substeps=cfg.sim_substeps)
+                    app.ist, app.consts, state, app.pw, app.pose,
+                    app.cam.intrinsics, app.H, app.W, 1.0, ns.force_ip,
+                    app.fvec, app.cut_bounds, substeps=cfg.sim_substeps)
                 if (i % 10 == 0 or cfg.timing_on) and not bool(
                         torch.isfinite(out["tiles_ws"]).all()):
                     raise SystemExit(
@@ -199,23 +255,10 @@ def main(argv=None):
                         "--kres / mass / lam,mu (the local-global scheme is "
                         "conditionally stable, matching the CUDA reference)")
             else:
-                state = (sim.update_force(consts, state, ns.force_ip, fvec)
-                         if ns.force_ip >= 0 else sim.clear_force(state))
-                state = sim.sim_step(consts, state)
-                p_def, F, dF = sim.get_ip_info(consts, state)
-                if not bool(torch.isfinite(p_def).all()):
-                    raise SystemExit(
-                        f"simulation diverged at frame {i} (NaN IP "
-                        "positions); tune --sim_dt / --kres / mass / lam,mu "
-                        "(the local-global scheme is conditionally stable, "
-                        "matching the CUDA reference)")
-                pack = beam_bend.pack_for(bst, p_def, consts.ip_pos.float(),
-                                          F, dF)
-                out = interactive.render_frame(
-                    ist, pw, pack, p_def, pose, cam.intrinsics, H, W, 1.0,
-                    cut_bounds)
-            img = interactive.tiles_to_image(out["tiles_image"], H, W,
-                                             ist.tile)
+                state, pack, p_def = newton_sim(app, state, i)
+                out = newton_render(app, pack, p_def)
+            img = interactive.tiles_to_image(out["tiles_image"], app.H,
+                                             app.W, app.ist.tile)
             sink.push(os.path.join(ns.out_dir, f"frame_{i:04d}.png"), img)
             if cfg.timing_on:
                 now = time.perf_counter()
@@ -225,6 +268,11 @@ def main(argv=None):
             if i % 10 == 0:
                 print(f"frame {i}/{ns.frames}")
     print(f"wrote {ns.frames} frames to {ns.out_dir}/")
+    launched = {f"field_w{w}_{t}": n for (w, t), n
+                in field_kernel.field_eval.launches.items() if n}
+    launched.update({f"tile_{m}_w{w}_{s}": n for (m, w, s), n
+                     in tile_kernel.render_tiles.launches.items() if n})
+    print(f"kernel launches: {json.dumps(launched)}")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid encoder (Instant-NGP), forward only.
+"""Multiresolution hash-grid encoder (Instant-NGP).
 
 Port of ``pienerf_tpu.models.hash_encoder`` (``make_spec``, the level
 constants, the per-axis tables and ``encode``), with the reference CUDA
@@ -12,8 +12,11 @@ encoder's index semantics (gridencoder/src/gridencoder.cu:51-135):
 
 The per-axis index contributions come from host tables (numpy) as in the
 JAX package; the index arithmetic runs in int64 with 32-bit masks, so the
-indices are JAX's. The training half (``_grid_index_of``, the TV
-gradient) waits for the trainer.
+indices are JAX's. The encode's gradient with respect to the embeddings is
+autograd's: each corner's indexed read transposes into an accumulating
+``index_put_``, the scatter-add JAX gets by transposing its gather.
+``grad_total_variation`` is the reference's TV gradient; ``encode_np`` and
+``tv_grad_np`` are the scalar-loop numpy oracles.
 """
 
 from __future__ import annotations
@@ -197,3 +200,202 @@ def encode(embeddings: torch.Tensor, spec: HashGridSpec, inputs: Coords,
     out = torch.where(oob[None, None, :], torch.zeros_like(out), out)
     out = out.reshape(L * C, n)
     return out if feature_major else out.T
+
+
+def _grid_index_of(spec: HashGridSpec, pos_grid, axis_delta=None
+                   ) -> torch.Tensor:
+    """Grid index [L, N] (int64) of integer lattice coords (a list of D
+    [L, N] tensors of u32 values), optionally shifted by +-1 along one
+    axis: ``axis_delta`` = (axis, +1 | -1). The same tables as
+    ``encode``'s corners. A shift off the lattice's ends gives a clamped
+    row; ``grad_total_variation`` masks those out, as the JAX package
+    does."""
+    D, L = spec.input_dim, spec.num_levels
+    tables, mask, width = _axis_tables(spec)
+    _, _, _, offs, dense = _level_constants(spec)
+    dev = pos_grid[0].device
+    lvl_base = (torch.arange(L, device=dev) * width)[:, None]
+    acc_dense = acc_hash = None
+    for dd in range(D):
+        delta = 0
+        if axis_delta is not None and axis_delta[0] == dd:
+            delta = axis_delta[1]
+        if dd == 0:
+            c = (pos_grid[0] + delta) & _M32
+        else:
+            tab = torch.as_tensor(tables[dd - 1], device=dev)
+            flat = torch.clamp(lvl_base + pos_grid[dd] + delta, 0,
+                               tab.numel() - 1)
+            c = tab[flat]
+        acc_dense = c if acc_dense is None else (acc_dense + c) & _M32
+        acc_hash = c if acc_hash is None else acc_hash ^ c
+    idx = torch.where(torch.as_tensor(dense, device=dev)[:, None], acc_dense,
+                      acc_hash & torch.as_tensor(mask, device=dev)[:, None])
+    return idx + torch.as_tensor(offs, device=dev)[:, None]
+
+
+def grad_total_variation(embeddings: torch.Tensor, spec: HashGridSpec,
+                         inputs: Coords, weight: float = 1e-7,
+                         bound: float = 1.0) -> torch.Tensor:
+    """Total-variation gradient accumulated at the sampled lattice cells
+    (reference gridencoder/src/gridencoder.cu:506-636): for each sample's
+    floor cell, per channel, add
+
+        weight/(2D) * sum_d (e[c] - e[c +- 1_d]) * rsqrt(sum_d (.)^2 + 1e-9)
+
+    at the cell's row, a deterministic ``index_add_``. Returns a
+    [total_params, C] tensor to add to the embeddings' gradient before the
+    optimizer step. Inputs outside the box add nothing; neighbours past the
+    lattice ends ([0, resolution] per axis) are skipped, as the kernel's
+    guards skip them."""
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    comps = [(c + bound) / (2.0 * bound) for c in _components(inputs, D)]
+    dev = comps[0].device
+    n = comps[0].shape[0]
+    oob = torch.zeros(n, dtype=torch.bool, device=dev)
+    for c in comps:
+        oob = oob | (c < 0.0) | (c > 1.0)
+    scales, res, _, _, _ = _level_constants(spec)
+    scales_t = torch.as_tensor(scales, device=dev)[:, None]
+    res_t = torch.as_tensor(res, device=dev)[:, None]
+    pos_grid = [torch.floor(c[None, :] * scales_t + 0.5).to(torch.int64)
+                & _M32 for c in comps]
+    rows = embeddings.shape[0]
+
+    def take(idx):
+        return e[torch.clamp(idx, 0, rows - 1)]
+
+    center = _grid_index_of(spec, pos_grid)                    # [L, N]
+    e = embeddings.detach().float()
+    ec = take(center)                                          # [L, N, C]
+    results = torch.zeros((L, n, C), device=dev)
+    idelta = torch.zeros((L, n, C), device=dev)
+    for d in range(D):
+        cur = pos_grid[d]
+        for delta, ok in ((+1, cur < res_t), (-1, cur > 0)):
+            idx = _grid_index_of(spec, pos_grid, axis_delta=(d, delta))
+            gv = torch.where(ok[..., None], ec - take(idx),
+                             torch.zeros_like(ec))
+            results = results + gv
+            idelta = idelta + gv * gv
+    w = weight / (2.0 * D)
+    vals = w * results * torch.rsqrt(idelta + 1e-9)
+    vals = torch.where(oob[None, :, None], torch.zeros_like(vals), vals)
+    keep = (center >= 0) & (center < rows)
+    vals = torch.where(keep[..., None], vals, torch.zeros_like(vals))
+    grad = torch.zeros((rows, C), device=dev)
+    grad.index_add_(0, torch.clamp(center, 0, rows - 1).reshape(-1),
+                    vals.reshape(-1, C))
+    return grad.to(embeddings.dtype)
+
+
+# ---------------------------------------------------------------------------
+# numpy oracle (used by tests to pin down index semantics)
+# ---------------------------------------------------------------------------
+
+def encode_np(embeddings: np.ndarray, spec: HashGridSpec, inputs: np.ndarray,
+              bound: float = 1.0) -> np.ndarray:
+    """Scalar-loop oracle mirroring gridencoder.cu line by line."""
+    D = spec.input_dim
+    S = math.log2(spec.per_level_scale)
+    H = spec.base_resolution
+    N = inputs.shape[0]
+    out = np.zeros((N, spec.num_levels, spec.level_dim), np.float64)
+    x = (np.asarray(inputs, np.float64) + bound) / (2 * bound)
+
+    for n in range(N):
+        if np.any(x[n] < 0) or np.any(x[n] > 1):
+            continue
+        for lvl in range(spec.num_levels):
+            hashmap_size = spec.offsets[lvl + 1] - spec.offsets[lvl]
+            scale = np.exp2(lvl * S) * H - 1.0
+            resolution = int(np.ceil(scale)) + 1
+            pos = x[n] * scale + 0.5
+            pg = np.floor(pos).astype(np.uint64)
+            fr = pos - pg
+            for c in range(2**D):
+                wgt = 1.0
+                loc = np.zeros(D, np.uint64)
+                for d in range(D):
+                    if (c >> d) & 1:
+                        wgt *= fr[d]
+                        loc[d] = pg[d] + 1
+                    else:
+                        wgt *= 1 - fr[d]
+                        loc[d] = pg[d]
+                # get_grid_index (gridencoder.cu:67-86)
+                stride = 1
+                index = 0
+                for d in range(D):
+                    if stride > hashmap_size:
+                        break
+                    index += int(loc[d]) * stride
+                    stride *= resolution + 1
+                if stride > hashmap_size:
+                    index = 0
+                    for d in range(D):
+                        index ^= (int(loc[d]) * _PRIMES[d]) & 0xFFFFFFFF
+                    index &= 0xFFFFFFFF
+                index = index % hashmap_size + spec.offsets[lvl]
+                out[n, lvl] += wgt * embeddings[index]
+    return out.reshape(N, spec.num_levels * spec.level_dim)
+
+
+def tv_grad_np(embeddings: np.ndarray, spec: HashGridSpec, inputs: np.ndarray,
+               weight: float = 1e-7, bound: float = 1.0) -> np.ndarray:
+    """Scalar-loop oracle mirroring kernel_grad_tv (gridencoder.cu:506-611)
+    line by line (align_corners=False, hash gridtype)."""
+    D = spec.input_dim
+    S = math.log2(spec.per_level_scale)
+    H = spec.base_resolution
+    C = spec.level_dim
+    x = (np.asarray(inputs, np.float64) + bound) / (2 * bound)
+    grad = np.zeros_like(np.asarray(embeddings, np.float64))
+
+    def grid_index(loc, hashmap_size, resolution):
+        stride = 1
+        index = 0
+        for d in range(D):
+            if stride > hashmap_size:
+                break
+            index += int(loc[d]) * stride
+            stride *= resolution + 1
+        if stride > hashmap_size:
+            index = 0
+            for d in range(D):
+                index ^= (int(loc[d]) * _PRIMES[d]) & 0xFFFFFFFF
+            index &= 0xFFFFFFFF
+        return index % hashmap_size
+
+    w = weight / (2 * D)
+    for n in range(x.shape[0]):
+        if np.any(x[n] < 0) or np.any(x[n] > 1):
+            continue
+        for lvl in range(spec.num_levels):
+            hashmap_size = spec.offsets[lvl + 1] - spec.offsets[lvl]
+            scale = np.exp2(lvl * S) * H - 1.0
+            resolution = int(np.ceil(scale)) + 1
+            pos_grid = np.floor(x[n] * scale + 0.5).astype(np.int64)
+            index = grid_index(pos_grid, hashmap_size, resolution) \
+                + spec.offsets[lvl]
+            results = np.zeros(C)
+            idelta = np.zeros(C)
+            for d in range(D):
+                cur = pos_grid[d]
+                if cur < resolution:
+                    pos_grid[d] = cur + 1
+                    ir = grid_index(pos_grid, hashmap_size, resolution) \
+                        + spec.offsets[lvl]
+                    gv = embeddings[index] - embeddings[ir]
+                    results += gv
+                    idelta += gv * gv
+                if cur > 0:
+                    pos_grid[d] = cur - 1
+                    il = grid_index(pos_grid, hashmap_size, resolution) \
+                        + spec.offsets[lvl]
+                    gv = embeddings[index] - embeddings[il]
+                    results += gv
+                    idelta += gv * gv
+                pos_grid[d] = cur
+            grad[index] += w * results / np.sqrt(idelta + 1e-9)
+    return grad

@@ -118,7 +118,8 @@ def render_rays_fast(field, settings: FastSettings, rays_o: torch.Tensor,
     w_c = (1.0 - torch.exp(-tau)) * torch.exp(-torch.cumsum(
         torch.nn.functional.pad(tau, (1, 0))[:, :-1], dim=1))
     t_mid = 0.5 * (t_c[:, :-1] + t_c[:, 1:])
-    t_f = sample_pdf(t_mid, w_c, k2, u_fine)
+    # the fine samples' placement carries no gradient (JAX's stop_gradient)
+    t_f = sample_pdf(t_mid, w_c.detach(), k2, u_fine)
 
     # the union, sorted along the ray
     t_all = torch.sort(torch.cat([t_c, t_f], dim=1), dim=1).values

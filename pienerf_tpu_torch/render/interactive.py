@@ -51,6 +51,10 @@ class InteractiveSettings(NamedTuple):
     #                                box take the static kernel pass
     cut_static_frac: float = 0.95  # slots of that static class, of n_tiles
     block_tiles: int = 1           # fused kernel: tiles per thread block
+    prep_approx_topk: bool = False  # the TPU's approx_max_k candidate
+    #                                compaction: accepted and not read; the
+    #                                prep always runs the exact top-k,
+    #                                which meets approx_max_k's contract
 
 
 def _check_supported(st: InteractiveSettings) -> None:

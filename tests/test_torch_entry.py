@@ -127,7 +127,14 @@ def test_port_imports_leave_jax_out():
             "pienerf_tpu_torch.ops.bending, "
             "pienerf_tpu_torch.render.deformed, "
             "pienerf_tpu_torch.sim.solver, pienerf_tpu_torch.io.checkpoint, "
-            "pienerf_tpu_torch.main_render; "
+            "pienerf_tpu_torch.main_render, "
+            "pienerf_tpu_torch.data.synthetic, "
+            "pienerf_tpu_torch.train.optim, "
+            "pienerf_tpu_torch.train.metrics, "
+            "pienerf_tpu_torch.train.trainer, "
+            "pienerf_tpu_torch.train.distill, "
+            "pienerf_tpu_torch.utils.mesh, pienerf_tpu_torch.weights, "
+            "pienerf_tpu_torch.main_train, pienerf_tpu_torch.main_distill; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pienerf_tpu' or "
             "m.startswith('pienerf_tpu.')]; print(bad); "
