@@ -51,7 +51,17 @@ entry points at full width on the trained checkpoint:
     student's; image_agreement at 800x800 through the tile kernel's static
     mode (held against its plain version at >= 100 dB); main_gui --ckpt
     latest serving the student on the field kernel, and its first Newton
-    frame in process held against the same frame on the plain field.
+    frame in process held against the same frame on the plain field;
+  main path 5, the point cloud and the live viewer, on main path 4's
+    workspaces: main_sample on the hash-grid teacher (sub_res 256, then
+    the hash-grid chain's 64), its occupancy on the card against the
+    CPU's, the chain's annotation and main_sim on the cloud; main_viewer
+    serving the 128-wide student in bf16 on that cloud as a process
+    (--cut, 30 frames); run_sim_viewer in process under an HTTP client
+    that orbits, drags, releases, pauses and quits (every served PNG equal
+    to its frame, the pick taken, one tile-kernel pass against its plain
+    version); the train viewer on the mlp's workspace (the static tile
+    kernel); tools/distill_table.py at 200 + 200 steps, Wd 128.
 
 The bf16 instantiations of both kernels run the field MLP on the tensor
 cores, the f32 ones on the CUDA cores: the build phase reports every
@@ -1395,7 +1405,325 @@ def main_path_4(c, sz=TRAIN) -> dict:
             "field_w128": gui_launches["field_w128_float32"],
             "train": {k: {"ms_per_step": v["ms_per_step_unprofiled"],
                           "device_idle_share": v["device_idle_share"]}
-                      for k, v in prof_rows.items()}}
+                      for k, v in prof_rows.items()},
+            # what main path 5 runs on: the workspaces, the teacher's
+            # checkpoint (the student is the newest), the dataset and the
+            # mlp's training flags
+            "ws": ws, "teacher": os.path.join(ckdir, ck_last["hashgrid"]),
+            "mlp_flags": common + paths["mlp"]}
+
+
+# main path 5 on main path 4's workspaces: the teacher sampled at the
+# reference's operating point (sub_res 256, threshold 0.05) and at the
+# hash-grid chain's (tools/hashgrid_chain.py: sub_res 64, threshold 0.02,
+# sim_dx 0.05, kres 7); the viewers at 800x800 on the student in bf16
+SAMPLE = dict(ref=("256", "0.05"), chain=("64", "0.02"), cmp_points=1 << 16,
+              sim_steps=20)
+VIEWER = dict(hw=800, process_frames=30, frames=40, train_frames=6,
+              cut_bounds=["-0.6", "0.6", "-0.6", "0.0", "-0.6", "0.6"])
+DT_SMOKE = ["--teacher_steps", "200", "--distill_steps", "200", "--n_poses",
+            "2", "--widths", "128"]
+
+
+def main_path_5(c, p4) -> dict:
+    """Main path 5, the point cloud and the live viewer: main_sample on
+    main path 4's hash-grid teacher (the reference's sub_res 256, then the
+    chain's 64), its occupancy on the card against the CPU's, the chain's
+    annotation and main_sim on the cloud; main_viewer serving the
+    128-wide student on it as a process (--cut, 30 frames) and
+    run_sim_viewer in process under a client thread that orbits, drags,
+    releases, pauses and quits (every served PNG decoded to its frame, the
+    pick, one frame's tile-kernel pass against its plain version); the
+    train viewer on the mlp's workspace; distill_table at a smoke size.
+    Returns the tile kernel's launches of the path by (mode, width)."""
+    import shutil
+    import threading
+    import urllib.request
+
+    import torch
+
+    from pienerf_tpu_torch import main_sample, main_sim, main_viewer
+    from pienerf_tpu_torch import web_viewer
+    from pienerf_tpu_torch.config import get_shared_opts
+    from pienerf_tpu_torch.io.checkpoint import load_native
+    from pienerf_tpu_torch.io.framesink import decode_png, encode_png
+    from pienerf_tpu_torch.io.ply import read_physics_ply, read_ply, write_ply
+    from pienerf_tpu_torch.models import network
+    from pienerf_tpu_torch.sample import AdaptiveUniformSampling
+    from pienerf_tpu_torch.tools import distill_table
+    from pienerf_tpu_torch.weights import field_from_numpy
+
+    dev, cpu, tk = c.dev, torch.device("cpu"), c.tk
+    root = os.path.join(ROOT, "build", "smoke_path5")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "assets"))
+    ws_t = p4["ws"]["hashgrid"]
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    def in_root(fn, *a):
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            return fn(*a)
+        finally:
+            os.chdir(cwd)
+
+    # ---- the physics point cloud of the teacher
+    teacher = ["--device", "cuda", "--workspace", ws_t, "--ckpt",
+               p4["teacher"], "--backbone", "hashgrid", "--bound", "1.0",
+               "--sim_dx", "0.05"]
+    clouds = {}
+    for name, (res, thr) in (("ref", SAMPLE["ref"]),
+                             ("chain", SAMPLE["chain"])):
+        t0 = time.perf_counter()
+        out = in_root(main_sample.main, teacher + [
+            "--exp_name", name, "--sub_res", res, "--density_threshold",
+            thr])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        cloud = read_ply(os.path.join(root, out))
+        clouds[name] = os.path.join(root, out)
+        emit("main_sample", cloud=name, sub_res=int(res), threshold=float(
+            thr), points=int(cloud["x"].shape[0]), seconds=sec,
+             vp_sum=float(cloud["vp"].sum()))
+        assert cloud["x"].shape[0] > 200 and np.isfinite(cloud["vp"]).all()
+
+    # ---- the occupancy on the card against the CPU's, on 2^16 points of
+    # the sub_res 256 lattice
+    tree = load_native(p4["teacher"])[0]["ema_params"]
+    t_spec = network.make_spec(bound=1.0, backbone="hashgrid")
+    cfg = get_shared_opts(args=["--bound", "1.0", "--sub_res", "256"])
+    samplers = [AdaptiveUniformSampling(cfg, field_from_numpy(
+        tree, t_spec, d), t_spec) for d in (dev, cpu)]
+    ax = samplers[0].lattice()[0]
+    ids = np.random.RandomState(0).randint(0, 256, (SAMPLE["cmp_points"],
+                                                    3))
+    x = ax[ids]
+    occ = [s.get_density(x) for s in samplers]
+    occ_err = float(np.abs(occ[0] - occ[1]).max())
+    emit("sample_card_vs_cpu", points=int(x.shape[0]), max_abs=occ_err,
+         limit=1e-5, occupied=int((occ[1] > 0.05).sum()))
+    assert occ_err <= 1e-5, occ_err
+    del samplers
+
+    # ---- annotate the chain's cloud as tools/hashgrid_chain.py:137-145
+    # does (the bottom cap pinned, rubber-like moduli) and simulate it
+    d = read_physics_ply(clouds["chain"])
+    n = d["pos"].shape[0]
+    pin = (d["pos"][:, 2] < np.quantile(d["pos"][:, 2], 0.12)).astype(
+        np.float64)
+    chain_ply = os.path.join(root, "assets", "chain.ply")
+    write_ply(chain_ply, d["pos"], vp=d["vp"], pin=pin,
+              lam=np.full(n, 1e5), mu=np.full(n, 1e5), mass=np.full(n, 0.1))
+    sim_out = os.path.join(root, "sim_out")
+    t0 = time.perf_counter()
+    main_sim.main(["--ply", chain_ply, "--steps", str(SAMPLE["sim_steps"]),
+                   "--out_every", "10", "--sim_dx", "0.05", "--kres", "7",
+                   "--bound", "1.0", "--out_dir", sim_out])
+    plys = sorted(os.listdir(sim_out))
+    last = read_ply(os.path.join(sim_out, plys[-1]))
+    last = np.stack([last[k] for k in ("x", "y", "z")], 1)
+    emit("chain_sim", points=n, pinned=int(pin.sum()),
+         steps=SAMPLE["sim_steps"], seconds=time.perf_counter() - t0,
+         plys=plys, max_move=float(np.abs(last - d["pos"]).max()))
+    assert plys == ["pnt_00000.ply", "pnt_00010.ply"], plys
+    assert np.isfinite(last).all() and last.shape == d["pos"].shape
+
+    # ---- main_viewer as a user runs it: the student (--ckpt latest, bf16)
+    # on the annotated cloud, cut mode, 30 frames
+    hw = str(VIEWER["hw"])
+    viewer = ["--workspace", ws_t, "--exp_name", "chain", "--backbone",
+              "mlp", "--ckpt", "latest", "--fp16", "--sim_dx", "0.05",
+              "--kres", "7", "--bound", "1.0", "--max_iter_num", "1",
+              "--num_seek_IP", "3", "--W", hw, "--H", hw, "--radius", "2.5",
+              "--port", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "pienerf_tpu_torch.main_viewer"] + viewer + [
+            "--frames", str(VIEWER["process_frames"]), "--cut",
+            "--cut_bounds"] + VIEWER["cut_bounds"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    emit("main_viewer_process", rc=r.returncode,
+         seconds=time.perf_counter() - t0,
+         tail=r.stdout.strip().splitlines()[-3:])
+    assert r.returncode == 0, r.stderr[-4000:]
+    proc = json.loads(re.findall(r"kernel launches: (\{.*\})",
+                                 r.stdout)[-1])
+    assert proc.get("tile_cut_w128_default", 0) > 0, proc
+    add({f"tile_{k.split('_')[1]}_w128": v for k, v in proc.items()
+         if k.endswith("_w128_default")})
+
+    # ---- run_sim_viewer in process, a client thread on HTTP
+    cfg_v, ns_v = main_viewer.parse(viewer)
+    trainer = main_viewer.load_trainer(cfg_v, ns_v)
+    consts, state, ist, pw, cut_bounds = in_root(
+        main_viewer.setup_sim, cfg_v, ns_v, trainer)
+    assert (trainer.spec.hidden_dim, trainer.spec.compute_dtype) == (
+        128, "bfloat16")
+    server = web_viewer.ViewerServer(VIEWER["hw"], VIEWER["hw"],
+                                     port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    shared = server.shared
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=300) as resp:
+            return resp.read()
+
+    def post(path, obj):
+        req = urllib.request.Request(base + path, method="POST",
+                                     data=json.dumps(obj).encode())
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.read()
+
+    def wait(cond, what):
+        t_end = time.monotonic() + 300
+        while not cond():
+            if time.monotonic() > t_end:
+                raise TimeoutError(what)
+            time.sleep(0.02)
+
+    published, frames, calls, served, errors = [], [], [], [], []
+    publish, encode, kernel = (shared.publish, web_viewer.encode_frame,
+                               tk.render_tiles)
+
+    def rec_publish(png, stats):
+        publish(png, stats)
+        published.append((png, stats))
+        if stats["frame"] == 2:      # the client's release and pause first
+            wait(lambda: len(shared.events) >= 2, "client events")
+
+    def rec_encode(img):
+        frames.append(img)
+        return encode(img)
+
+    def capture(*a, **kw):
+        out = kernel(*a, **kw)
+        if not calls:
+            calls.append((a, kw, out))
+        return out
+
+    def client():
+        try:
+            served.append(get("/frame.png?s=0"))
+            wait(lambda: json.loads(get("/state")).get("frame", -1) >= 2,
+                 "frame 2")
+            post("/event", {"t": "drag_end"})
+            post("/event", {"t": "pause"})
+            wait(lambda: json.loads(get("/state")).get("paused"), "pause")
+            served.append(get("/frame.png?s=0"))
+            post("/quit", {})
+        except Exception as e:       # raised below, on the main thread
+            errors.append(e)
+            shared.stop = True
+
+    capture.launches = kernel.launches
+    shared.publish, web_viewer.encode_frame, tk.render_tiles = (
+        rec_publish, rec_encode, capture)
+    for ev in ({"t": "orbit", "dx": 40, "dy": 10},
+               {"t": "drag_start", "x": 0.5, "y": 0.5},
+               {"t": "drag", "x": 0.56, "y": 0.48}):
+        post("/event", ev)
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    c.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        web_viewer.run_sim_viewer(cfg_v, consts, state, ist, pw,
+                                  cut_bounds=cut_bounds,
+                                  max_frames=VIEWER["frames"], server=server)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        th.join(timeout=60)
+    finally:
+        web_viewer.encode_frame = encode
+        kernel.launches = tk.render_tiles.launches
+        tk.render_tiles = kernel
+        server.close()
+    sv = c.read_counts()
+    add(sv)
+    if errors:
+        raise errors[0]
+    assert not th.is_alive()
+    pngs = [p for p, _ in published]
+    decoded_equal = all(np.array_equal(decode_png(p), np.clip(
+        f * 255.0, 0, 255).astype(np.uint8)) for p, f in zip(pngs, frames))
+    stats = [s for _, s in published]
+    a, kw, ko = calls[0]
+    po = tk.render_tiles_plain(*a, **kw)
+    torch.cuda.synchronize()
+    vs_plain = psnr(ko[:, 0:3].cpu().numpy(), po[:, 0:3].cpu().numpy())
+    frame_ms = [s["frame_ms"] for s in stats[1:]]
+    enc_ms = [s["encode_ms"] for s in stats]
+    emit("sim_viewer", frames=len(stats), seconds=sec,
+         res=[s["res"] for s in stats],
+         force_ip=[s["force_ip"] for s in stats],
+         paused=[s["paused"] for s in stats],
+         frame_ms_median=float(np.median(frame_ms)), frame_ms=frame_ms,
+         encode_ms_median=float(np.median(enc_ms)),
+         png_bytes_median=float(np.median([len(p) for p in pngs])),
+         served=len(served), decoded_equal=decoded_equal,
+         tile_vs_plain_db=vs_plain, limit_db=TILE_BF16_DB,
+         drops=stats[1]["drops"],
+         launches={k: v for k, v in sv.items() if v})
+    assert len(frames) == len(pngs) >= 4 and decoded_equal
+    assert all(b in pngs for b in served) and len(served) == 2
+    assert stats[1]["force_ip"] >= 0 and stats[2]["force_ip"] >= 0, stats
+    assert stats[-1]["paused"] and shared.stop
+    assert sv["tile_deformed_w128"] > 0, sv
+    assert vs_plain >= TILE_BF16_DB, vs_plain
+    del trainer, consts, state, pw
+
+    # ---- the served frame's zlib level: frame 0 (full size) on this
+    # machine's host at level 1 (the viewer's) and 6 (write_png's)
+    q = np.clip(frames[0] * 255.0, 0, 255).astype(np.uint8)
+    levels = {}
+    for level in (1, 6):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            data = encode_png(q, level)
+        levels[level] = {"ms": (time.perf_counter() - t0) * 1e3 / 5,
+                         "bytes": len(data)}
+    emit("png_levels", hw=list(q.shape[:2]), levels=levels,
+         viewer_level=web_viewer.PNG_LEVEL)
+
+    # ---- the train viewer on the mlp's workspace (bf16, static mode)
+    c.reset_counts()
+    t0 = time.perf_counter()
+    main_viewer.main(p4["mlp_flags"] + [
+        "--workspace", p4["ws"]["mlp"], "--mode", "train", "--frames",
+        str(VIEWER["train_frames"]), "--port", "0", "--W", hw, "--H", hw,
+        "--radius", "2.5"])
+    torch.cuda.synchronize()
+    tv = c.read_counts()
+    add(tv)
+    emit("train_viewer", frames=VIEWER["train_frames"],
+         seconds=time.perf_counter() - t0,
+         launches={k: v for k, v in tv.items() if v})
+    assert tv["tile_static_w64"] > 0, tv
+
+    # ---- distill_table at a smoke size (Wd 128, 200 + 200 steps, 2 poses)
+    c.reset_counts()
+    t0 = time.perf_counter()
+    table = distill_table.main(DT_SMOKE + [
+        "--out", os.path.join(root, "distill_table", "table.json")])
+    torch.cuda.synchronize()
+    dl = c.read_counts()
+    add(dl)
+    row = table["rows"][0]
+    emit("distill_table_smoke", seconds=time.perf_counter() - t0,
+         teacher_fit_seconds=table["teacher_fit_seconds"],
+         image_psnr=row["image_psnr"], image_ssim=row["image_ssim"],
+         field=row["field"], fps_800=row["fps_800"],
+         launches={k: v for k, v in dl.items() if v})
+    assert np.isfinite(row["image_psnr"]) and row["fps_800"] > 0
+    assert dl["tile_deformed_w128"] > 0 and dl["tile_static_w128"] > 0, dl
+    return launches
 
 
 def main() -> None:
@@ -2478,6 +2806,9 @@ def main() -> None:
                                   read_counts=read_counts, only=only)
     train_launches = main_path_4(path4)
 
+    # ---- main path 5: the point cloud and the live viewer
+    viewer_launches = main_path_5(path4, train_launches)
+
     # ---- every (kernel, mode, width) with its launches on its main path:
     # field kernel, the Newton frame (Wd 64) and the wide fidelity oracle
     # (Wd 128); tile kernel, main path 1 (deformed) and main path 2 (the
@@ -2507,6 +2838,13 @@ def main() -> None:
                     bf16_max_abs_err=r["rgb_max_abs"],
                     bf16_bound_ms=r["bound_ms"], **extra)
 
+    def p5(key):
+        """Main path 5's launches of a tile row (the viewers, the
+        distill_table smoke), beside the row's own main-path count."""
+        n = viewer_launches.get(key, 0)
+        assert n > 0, (key, viewer_launches)
+        return {"viewer_path_launches": n}
+
     fsrc = ("pienerf_tpu_torch/csrc/field_kernel.cu",
             "pienerf_tpu/ops/pallas/field_kernel.py:134")
     tsrc = ("pienerf_tpu_torch/csrc/tile_kernel.cu",
@@ -2520,19 +2858,20 @@ def main() -> None:
         row("tile_kernel", *tsrc, frame_launches["tile_deformed_w64"],
             tile_row),
         row("tile_kernel_static", *tsrc, cut_launches["tile_static_w64"],
-            rows_c["static"]),
+            rows_c["static"], **p5("tile_static_w64")),
         row("tile_kernel_cut", *tsrc, cut_launches["tile_cut_w64"],
             rows_c["cut"]),
         row("field_kernel_w128", *fsrc, wfid_launches["field_w128"],
             field_rows[128]["float32"], **bf16_field(128),
             train_path_launches=train_launches["field_w128"]),
         row("tile_kernel_w128", *tsrc, wframe_launches["tile_deformed_w128"],
-            tile_row_w),
+            tile_row_w, **p5("tile_deformed_w128")),
         row("tile_kernel_static_w128", *tsrc,
             wcut_launches["tile_static_w128"], rows_c["static_w128"],
-            train_path_launches=train_launches["tile_static_w128"]),
+            train_path_launches=train_launches["tile_static_w128"],
+            **p5("tile_static_w128")),
         row("tile_kernel_cut_w128", *tsrc, wcut_launches["tile_cut_w128"],
-            rows_c["cut_w128"]),
+            rows_c["cut_w128"], **p5("tile_cut_w128")),
         # the schedules: the paired deformed mode and block_tiles on their
         # bench frames; the paired static and cut modes on a cut frame run
         # below with the paired pack

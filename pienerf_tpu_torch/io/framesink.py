@@ -25,22 +25,27 @@ _COLOR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}     # channels -> PNG color type
 _CHANNELS = {v: k for k, v in _COLOR_TYPES.items()}
 
 
-def write_png(path: str, frame: np.ndarray) -> None:
+def encode_png(frame: np.ndarray, level: int = 6) -> bytes:
     """frame: [H, W] gray, [H, W, 3] RGB or [H, W, 4] RGBA, uint8 (or
-    float in [0, 1]); every row filter 0."""
+    float in [0, 1]) -> the bytes of an 8-bit PNG, every row filter 0,
+    the image data at zlib ``level``."""
     if frame.dtype != np.uint8:
         frame = (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8)
     h, w = frame.shape[:2]
     cn = 1 if frame.ndim == 2 else frame.shape[2]
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
                           np.ascontiguousarray(frame).reshape(h, w * cn)], 1)
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                         _COLOR_TYPES[cn], 0, 0, 0))
-           + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-           + _chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                          _COLOR_TYPES[cn], 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, frame: np.ndarray) -> None:
+    """``encode_png(frame)`` written to ``path``."""
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(encode_png(frame))
 
 
 def _paeth_row(cur: list, prev: list, bpp: int) -> None:
@@ -86,15 +91,19 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit non-interlaced PNG: gray [H, W], gray + alpha
+    """Decode an 8-bit non-interlaced PNG file: gray [H, W], gray + alpha
     [H, W, 2], RGB [H, W, 3] or RGBA [H, W, 4] uint8, every row filter
     (None, Sub, Up, Average, Paeth). What ``cv2.imread(path,
     IMREAD_UNCHANGED)`` reads, in RGB(A) channel order; palette, 16-bit
     and interlaced files raise."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """``read_png`` of the bytes of a PNG (``name`` labels its errors)."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
+        raise ValueError(f"{name}: not a PNG")
     pos, idat, hdr = 8, [], None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
@@ -108,7 +117,7 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + n
     w, h, depth, ctype, _, _, interlace = hdr
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: bit depth {depth}, color type {ctype}, "
+        raise ValueError(f"{name}: bit depth {depth}, color type {ctype}, "
                          f"interlace {interlace}: only 8-bit non-interlaced "
                          "gray, gray+alpha, RGB and RGBA are read")
     cn = _CHANNELS[ctype]

@@ -222,6 +222,15 @@ class Trainer:
         os.makedirs(os.path.join(self.workspace, "checkpoints"),
                     exist_ok=True)
         self.log_path = os.path.join(self.workspace, "log_ngp.txt")
+        # tensorboard scalars when tensorboardX imports, as the JAX trainer
+        # writes them (reference nerf/trainer.py:655-657)
+        self.writer = None
+        try:
+            from tensorboardX import SummaryWriter
+
+            self.writer = SummaryWriter(os.path.join(self.workspace, "run"))
+        except ImportError:
+            pass
         if use_checkpoint == "latest":
             self.load_checkpoint(None)
         elif use_checkpoint not in ("scratch", None) or cfg.ckpt_path:
@@ -295,12 +304,46 @@ class Trainer:
                 and self.spec.compute_dtype != "float32"):
             self.set_compute_dtype("float32")
 
+    def _scan_chunk(self, remaining: int) -> int:
+        """The steps of the JAX trainer's next scanned chunk from this
+        step on (pienerf_tpu/train/trainer.py:531-546): 8 on the
+        hierarchical path, else up to the next grid update; never across
+        the precision tail's start."""
+        n = min(8 if self._use_fast_train
+                else self.cfg.update_extra_interval, remaining)
+        ts = getattr(self.cfg, "precision_tail_start", None)
+        if ts is not None and ts >= 0 and self.global_step < ts:
+            n = min(n, ts - self.global_step)
+        if not self._use_fast_train:
+            uei = self.cfg.update_extra_interval
+            n = min(n, uei - self.global_step % uei)
+        return n
+
+    def _write_losses(self, loss_np: np.ndarray, first_step: int,
+                      chunk_ends: list, host_images: bool) -> None:
+        """``train/loss`` at the JAX trainer's steps and values: each
+        scanned chunk's mean at its last step, or, with host-resident
+        images (its eager loop), every 50th step's loss."""
+        if host_images:
+            for i, loss in enumerate(loss_np):
+                if (first_step + i + 1) % 50 == 0:
+                    self.writer.add_scalar("train/loss", float(loss),
+                                           first_step + i + 1)
+            return
+        start = 0
+        for end in chunk_ends:
+            self.writer.add_scalar("train/loss",
+                                   float(loss_np[start:end].mean()),
+                                   first_step + end)
+            start = end
+
     def train_iterations(self, dataset, n_iters: int) -> float:
         """Run n_iters steps, each on a random view of ``dataset`` (poses
         [B, 4, 4], images [B, H, W, C] in [0, 1], intrinsics, H, W); the
         mean loss. Above ``$PIENERF_MAX_DEVICE_DATASET`` bytes (2e9) the
         images stay in host memory and each step copies its pixels over.
-        Refuses to train from a non-finite state."""
+        Refuses to train from a non-finite state. With tensorboardX,
+        writes ``train/loss`` as the JAX trainer does."""
         self._ensure_ema_decay(len(dataset.poses))
         if not self._validated:
             if not params_finite(self.state.params):
@@ -328,8 +371,11 @@ class Trainer:
         if self.cfg.error_map and self.error_map is None:
             self.error_map = torch.ones((B, 128 * 128), device=dev)
 
-        losses = []
-        for _ in range(n_iters):
+        losses, first_step = [], self.global_step
+        chunk_ends, chunk_left = [], 0
+        for i in range(n_iters):
+            if chunk_left == 0:
+                chunk_left = self._scan_chunk(n_iters - i)
             self._maybe_precision_tail()
             if (not self._use_fast_train and self.global_step
                     % self.cfg.update_extra_interval == 0):
@@ -360,8 +406,13 @@ class Trainer:
                 self.error_map[vi, coarse] = err
             self.global_step += 1
             losses.append(m["loss"])
+            chunk_left -= 1
+            if chunk_left == 0:
+                chunk_ends.append(i + 1)
         loss_np = torch.stack(losses).float().cpu().numpy()
         self.loss_history += loss_np.tolist()
+        if self.writer is not None:
+            self._write_losses(loss_np, first_step, chunk_ends, host_images)
         return float(loss_np.mean())
 
     # -- CLIP guidance (reference rand_pose mode) ---------------------------
@@ -483,6 +534,11 @@ class Trainer:
         if lpips_m is not None:
             msg += f" | {lpips_m.report()}"
         self.log(msg)
+        if self.writer is not None:
+            self.writer.add_scalar("eval/psnr", meter.measure(),
+                                   self.global_step)
+            self.writer.add_scalar("eval/ssim", ssim_m.measure(),
+                                   self.global_step)
         return meter.measure()
 
     # -- geometry export -----------------------------------------------------
