@@ -44,7 +44,7 @@ entry points at full width on the trained checkpoint:
     hierarchical renderer) held against the port's CPU from the same state
     and draws; each trainer's ms a step and device idle share, and the
     plain hash encode's forward + backward inside a hash-grid step;
-    main_train on the mlp (bf16, 4096 rays, 256 samples, 300 steps) and
+    main_train on the mlp (bf16, 4096 rays, 256 samples, 150 steps) and
     on the default hash grid (2,000 steps), their losses falling, the hash
     grid's point cloud not empty; main_distill --student_width 128 on the
     hash grid's workspace; field_agreement against the untrained
@@ -61,7 +61,17 @@ entry points at full width on the trained checkpoint:
     that orbits, drags, releases, pauses and quits (every served PNG equal
     to its frame, the pick taken, one tile-kernel pass against its plain
     version); the train viewer on the mlp's workspace (the static tile
-    kernel); tools/distill_table.py at 200 + 200 steps, Wd 128.
+    kernel); tools/distill_table.py at 200 + 200 steps, Wd 128;
+  the last modules, on main path 4's workspaces: AlexNet-LPIPS on seeded
+    weights (loaded through $PIENERF_LPIPS_WEIGHTS) on an 800x800 frame
+    pair and in a patch-32 train step of the mlp, each held against the
+    CPU; CLIP ViT-B/16 on seeded weights, both towers against the CPU and
+    three CLIP steps of the mlp at 64x64 -> 224; tools/hashgrid_chain.py
+    on the hash grid (.pth round trip, cloud, annotation, validate_asset:
+    distill 300 steps, 4 poses at 256x256, the coupled frame's rate); and
+    parallel/dryrun.py on two gloo ranks sharing the card (the sharded
+    train step, sim and band frames at toy shapes, and the 896x800 band
+    frame, plain and paired), each against one process's result.
 
 The bf16 instantiations of both kernels run the field MLP on the tensor
 cores, the f32 ones on the CUDA cores: the build phase reports every
@@ -84,7 +94,7 @@ bend and blend, MLP, composite) and how the tiles fill the card's slots.
 field_kernel_embedded holds the
 f32 field kernel at Wd 128 on the embedded checkpoint bit for bit to Wd 64;
 big_sim holds bf16 operator storage to the JAX package's own reading and
-runs a 200-step drag under it.
+runs a 100-step drag under it.
 
     python3 chip_smoke.py
 
@@ -190,7 +200,8 @@ PR7_MS = {"tile_kernel": 3.297, "tile_kernel_static": 8.210,
 # port's bf16 path no longer does what JAX's does.
 BF16_STEP_REL_JAX = 0.05247
 BF16_STEP_REL_TOL = 0.15
-LONG_DRAG_STEPS = 200             # the bf16 long drag, read every 50 steps
+LONG_DRAG_STEPS = 100             # the bf16 long drag, read every 25 steps
+LONG_DRAG_EVERY = 25
 # the trex proxy's cut box (tools/trex_proxy.py:42) and the resolution of
 # the cut-mode fidelity frame
 CUT_BOUNDS = [-0.30, 0.75, -0.75, 0.60, -0.45, 0.75]
@@ -1018,10 +1029,10 @@ def main_path_3(c) -> dict:
 # configuration (bf16, 4096 rays, 256 samples, lr decay 1e-5), the hash
 # grid at the default width (16 levels x 2, 2^19 rows, 64-wide nets, 64
 # samples, a grid update every 16 steps), the 128-wide student distilled
-# from it; depth cut to 300 mlp steps and 2,000 hash-grid steps (the EMA,
+# from it; depth cut to 150 mlp steps and 2,000 hash-grid steps (the EMA,
 # decayed 0.95^(1/40) a step, keeps 0.95^50 = 7.7% of the random init
 # after 2,000: the distilled teacher is a trained field)
-TRAIN = dict(hw=800, n_train=40, n_val=4, iters={"mlp": 300,
+TRAIN = dict(hw=800, n_train=40, n_val=4, iters={"mlp": 150,
                                                  "hashgrid": 2000},
              distill_steps=1000, distill_batch=8192, num_rays=4096,
              cmp_rays=1024, prof_steps=32, agree_views=2)
@@ -1029,6 +1040,23 @@ CKPT_CHUNK = 500   # steps between the trainer's checkpoints (Trainer.train)
 G_FLOOR = 1e-6     # |g| / max|g| of its leaf above which params compare
 MAX_FLIPS = 2      # the CPU parity test's flips a leaf (or 1e-4 of those
 #                    below the floor, on the card's millions of rows)
+
+
+def compare_steps(a, b, grads):
+    """Two param lists updated from one state, card and CPU: the largest
+    difference where |g| > G_FLOOR of its leaf's largest; each leaf's
+    flips below that floor (params more than 1e-6 apart) and entries
+    there; whether the flips stay at most MAX_FLIPS a leaf (or 1e-4 of
+    the entries below the floor)."""
+    p_err, flips, below, flips_ok = 0.0, [], [], True
+    for x, y, g in zip(a, b, grads):
+        big = g.abs() > G_FLOOR * g.abs().max()
+        if big.any():
+            p_err = max(p_err, float((x - y)[big].abs().max()))
+        flips.append(int(((x - y).abs() > 1e-6)[~big].sum()))
+        below.append(int((~big).sum()))
+        flips_ok &= flips[-1] <= max(MAX_FLIPS, 1e-4 * below[-1])
+    return p_err, flips, below, flips_ok
 
 
 def step_profile(prof, n_steps: int, ms_per_step: float) -> dict:
@@ -1163,15 +1191,7 @@ def main_path_4(c, sz=TRAIN) -> dict:
         (lc, gc, pc), (lh, gh, ph) = res
         grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp(
             min=1e-30)) for a, b in zip(gc, gh))
-        p_err, flips, below, flips_ok = 0.0, [], [], True
-        for a, b, gg in zip(pc, ph, gh):
-            big = gg.abs() > G_FLOOR * gg.abs().max()
-            if big.any():
-                p_err = max(p_err, float((a - b)[big].abs().max()))
-            fl = int(((a - b).abs() > 1e-6)[~big].sum())
-            flips.append(fl)
-            below.append(int((~big).sum()))
-            flips_ok &= fl <= max(MAX_FLIPS, 1e-4 * below[-1])
+        p_err, flips, below, flips_ok = compare_steps(pc, ph, gh)
         loss_rel = abs(lc / lh - 1.0)
         emit("train_step_card_vs_cpu", path=name, rays=n, samples=k,
              loss_card=lc, loss_cpu=lh, loss_rel=loss_rel,
@@ -1447,10 +1467,10 @@ def main_path_5(c, p4) -> dict:
     from pienerf_tpu_torch.config import get_shared_opts
     from pienerf_tpu_torch.io.checkpoint import load_native
     from pienerf_tpu_torch.io.framesink import decode_png, encode_png
-    from pienerf_tpu_torch.io.ply import read_physics_ply, read_ply, write_ply
+    from pienerf_tpu_torch.io.ply import read_physics_ply, read_ply
     from pienerf_tpu_torch.models import network
     from pienerf_tpu_torch.sample import AdaptiveUniformSampling
-    from pienerf_tpu_torch.tools import distill_table
+    from pienerf_tpu_torch.tools import distill_table, hashgrid_chain
     from pienerf_tpu_torch.weights import field_from_numpy
 
     dev, cpu, tk = c.dev, torch.device("cpu"), c.tk
@@ -1511,15 +1531,13 @@ def main_path_5(c, p4) -> dict:
     assert occ_err <= 1e-5, occ_err
     del samplers
 
-    # ---- annotate the chain's cloud as tools/hashgrid_chain.py:137-145
-    # does (the bottom cap pinned, rubber-like moduli) and simulate it
-    d = read_physics_ply(clouds["chain"])
-    n = d["pos"].shape[0]
-    pin = (d["pos"][:, 2] < np.quantile(d["pos"][:, 2], 0.12)).astype(
-        np.float64)
+    # ---- annotate the chain's cloud as tools/hashgrid_chain.py does (the
+    # bottom cap pinned, rubber-like moduli) and simulate it
     chain_ply = os.path.join(root, "assets", "chain.ply")
-    write_ply(chain_ply, d["pos"], vp=d["vp"], pin=pin,
-              lam=np.full(n, 1e5), mu=np.full(n, 1e5), mass=np.full(n, 0.1))
+    shutil.copy(clouds["chain"], chain_ply)
+    n_pin = hashgrid_chain.annotate(chain_ply)
+    d = read_physics_ply(chain_ply)
+    n = d["pos"].shape[0]
     sim_out = os.path.join(root, "sim_out")
     t0 = time.perf_counter()
     main_sim.main(["--ply", chain_ply, "--steps", str(SAMPLE["sim_steps"]),
@@ -1528,7 +1546,7 @@ def main_path_5(c, p4) -> dict:
     plys = sorted(os.listdir(sim_out))
     last = read_ply(os.path.join(sim_out, plys[-1]))
     last = np.stack([last[k] for k in ("x", "y", "z")], 1)
-    emit("chain_sim", points=n, pinned=int(pin.sum()),
+    emit("chain_sim", points=n, pinned=n_pin,
          steps=SAMPLE["sim_steps"], seconds=time.perf_counter() - t0,
          plys=plys, max_move=float(np.abs(last - d["pos"]).max()))
     assert plys == ["pnt_00000.ply", "pnt_00010.ply"], plys
@@ -1723,6 +1741,248 @@ def main_path_5(c, p4) -> dict:
          launches={k: v for k, v in dl.items() if v})
     assert np.isfinite(row["image_psnr"]) and row["fps_800"] > 0
     assert dl["tile_deformed_w128"] > 0 and dl["tile_static_w128"] > 0, dl
+    return launches
+
+
+# the last modules, on main path 4's workspaces: LPIPS and CLIP at their
+# published widths on seeded weights (the pretrained ones are not in the
+# repository), the asset chain on the 2,000-step hash grid, and the sharded
+# paths on two gloo ranks sharing the card
+LPIPS = dict(hw=800, patch=32, samples=256, limit_rel=1e-4)
+# ViT-B/16: vision (layers, width, heads, mlp, patch, image), text (layers,
+# width, heads, mlp, vocabulary, positions), the projection
+CLIP = dict(vision=(12, 768, 12, 3072, 16, 224),
+            text=(12, 512, 8, 2048, 49408, 77), proj=512, frame=64,
+            samples=64, radius=2.5, steps=3, limit=1e-4)
+CHAIN = ["--distill_steps", "300", "--n_poses", "4", "--H", "256", "--W",
+         "256"]
+
+
+def main_path_6(c, p4) -> dict:
+    """The last modules' phases: LPIPS (AlexNet-LPIPS on seeded weights in
+    the lpips package's raw layout, loaded through $PIENERF_LPIPS_WEIGHTS)
+    on an 800x800 frame pair and in a patch-32 train step of main path 4's
+    mlp, each held against the CPU; CLIP ViT-B/16 on seeded weights, both
+    towers against the CPU and three CLIP steps of the mlp at 64x64 ->
+    224; tools/hashgrid_chain.py on main path 4's hash grid (distill 300
+    steps, 4 poses at 256x256); parallel/dryrun.py on two gloo ranks
+    sharing the card, its toy checks and the 896x800 band frame. Returns
+    the kernels' launches by phase."""
+    import glob
+    import shutil
+
+    import torch
+
+    from pienerf_tpu_torch.data import synthetic
+    from pienerf_tpu_torch.data.rays import get_rays_sampled
+    from pienerf_tpu_torch.data.rays import sample_patch_indices
+    from pienerf_tpu_torch.io.checkpoint import load_native
+    from pienerf_tpu_torch.models import network
+    from pienerf_tpu_torch.parallel import dryrun
+    from pienerf_tpu_torch.render import renderer
+    from pienerf_tpu_torch.tools import hashgrid_chain
+    from pienerf_tpu_torch.train import clip_guidance as cg
+    from pienerf_tpu_torch.train import lpips as lp
+    from pienerf_tpu_torch.train import trainer as ttr
+    from pienerf_tpu_torch.weights import (clip_to_torch, field_from_numpy,
+                                           lpips_to_torch)
+
+    dev, cpu = c.dev, torch.device("cpu")
+    root = os.path.join(ROOT, "build", "smoke_path6")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    launches = {}
+
+    # ---- LPIPS: seeded AlexNet-LPIPS weights in the raw layout, through
+    # the weight file, on the card and the CPU
+    rng = np.random.default_rng(0)
+    raw = {}
+    for i, ((ci, co, k, _, _), fi) in enumerate(zip(lp._ALEX,
+                                                    lp._FEATURE_IDX)):
+        raw[f"net.slice{i + 1}.{fi}.weight"] = rng.standard_normal(
+            (co, ci, k, k), np.float32) * np.float32((2.0 / (ci * k * k))
+                                                     ** 0.5)
+        raw[f"net.slice{i + 1}.{fi}.bias"] = rng.standard_normal(
+            co, np.float32) * np.float32(0.01)
+        raw[f"lin{i}.model.1.weight"] = np.abs(rng.standard_normal(
+            (1, co, 1, 1), np.float32)) / np.float32(co)
+    wpath = os.path.join(root, "lpips_alex.npz")
+    np.savez(wpath, **raw)
+    os.environ["PIENERF_LPIPS_WEIGHTS"] = wpath
+    w_np = lp.load_weights()
+    w = [lpips_to_torch(w_np, d) for d in (dev, cpu)]
+    hw = LPIPS["hw"]
+    intr = (0.9 * hw, 0.9 * hw, hw / 2.0, hw / 2.0)
+    poses = synthetic.orbit_poses(2, seed=7)
+    frames = np.stack([synthetic.render_gt(p, intr, hw, hw, device=dev)
+                       for p in poses]).astype(np.float32)
+    vals = []                                   # card, CPU
+    for j, d in enumerate((dev, cpu)):
+        a, b = (torch.as_tensor(frames[i:i + 1], device=d) for i in (0, 1))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            vals.append(float(lp.lpips(a, b, w[j])[0]))
+        cpu_s = time.perf_counter() - t0
+    a, b = (torch.as_tensor(frames[i:i + 1], device=dev) for i in (0, 1))
+    with torch.no_grad():
+        card_ms = cuda_ms(lambda: lp.lpips(a, b, w[0]), 5)
+    frame_rel = abs(vals[0] / vals[1] - 1.0)
+
+    # a patch-32 step of main path 4's mlp (f32) with the perceptual term:
+    # one 32x32 patch of the first frame, card against CPU
+    ck = sorted(glob.glob(os.path.join(p4["ws"]["mlp"], "checkpoints",
+                                       "ngp_ep*.npz")))[-1]
+    tree = load_native(ck)[0]["ema_params"]
+    spec = network.make_spec(bound=1.0, backbone="mlp")
+    k = LPIPS["samples"]
+    st = renderer.RenderSettings(bound=1.0, cascade=1, min_near=0.05,
+                                 max_samples=k)
+    g = torch.Generator().manual_seed(3)
+    p = LPIPS["patch"]
+    inds = sample_patch_indices(g, hw, hw, p * p, p)
+    ro, rd = get_rays_sampled(torch.as_tensor(poses[0]), intr, hw, hw, inds)
+    batch = {"rays_o": ro, "rays_d": rd, "pixels": torch.as_tensor(
+        frames[0].reshape(-1, 3))[inds]}
+    draws = {"u_coarse": torch.rand((p * p, k // 2), generator=g),
+             "u_fine": torch.rand((p * p, k - k // 2), generator=g)}
+    res = []
+    for j, d in enumerate((dev, cpu)):
+        field = field_from_numpy(tree, spec, d, trainable=True)
+        opt = ttr.make_optimizer(1e-2, 1000)
+        step = ttr.make_train_step(spec, st, opt, use_fast_path=True,
+                                   patch_size=p, lpips_weights=w[j])
+        state, m = step(ttr.init_state(field, opt), None,
+                        {a_: b_.to(d) for a_, b_ in batch.items()},
+                        draws={a_: b_.to(d) for a_, b_ in draws.items()})
+        res.append((float(m["loss"]), [q.cpu() for q in m["grads"]],
+                    [q.detach().cpu() for q in state.params.leaves()]))
+    (lc, gc, pc), (lh, gh, ph) = res
+    p_err, flips, _, flips_ok = compare_steps(pc, ph, gh)
+    step_rel = abs(lc / lh - 1.0)
+    emit("lpips_card_vs_cpu", nvidia_smi=smi_line(), hw=hw,
+         lpips_card=vals[0], lpips_cpu=vals[1], rel=frame_rel,
+         limit_rel=LPIPS["limit_rel"], card_ms=card_ms, cpu_s=cpu_s,
+         step_rays=p * p, step_samples=k, step_loss_card=lc,
+         step_loss_cpu=lh, step_loss_rel=step_rel, param_max_abs=p_err,
+         flips_below_floor=flips, checkpoint=os.path.relpath(ck, ROOT))
+    assert np.isfinite(vals[0]) and vals[0] > 0
+    assert frame_rel <= LPIPS["limit_rel"], vals
+    assert np.isfinite(lc) and step_rel <= 1e-5, (lc, lh)
+    assert p_err <= 1e-6 and flips_ok, p_err
+    del w, res
+
+    # ---- CLIP ViT-B/16: both towers on the card against the CPU, then
+    # three CLIP steps of the mlp at 64x64 -> 224 on the card
+    t0 = time.perf_counter()
+    cparams = cg.import_hf_state_dict(
+        cg.seeded_state_dict(0, CLIP["vision"], CLIP["text"], CLIP["proj"]),
+        CLIP["vision"][2], CLIP["text"][2])
+    make_s = time.perf_counter() - t0
+    tp = [clip_to_torch(cparams, d) for d in (dev, cpu)]
+    vocab, npos = CLIP["text"][4], CLIP["text"][5]
+    ids = np.zeros((2, npos), np.int64)
+    for i, n_tok in enumerate((7, 15)):
+        ids[i, 0] = vocab - 2                       # start of text
+        ids[i, 1:n_tok + 1] = rng.integers(1, vocab - 2, n_tok)
+        ids[i, n_tok + 1] = vocab - 1               # end of text: pooled
+    feats, secs = [], []                        # card, CPU
+    for j, d in enumerate((dev, cpu)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            img = cg.preprocess(torch.as_tensor(frames, device=d),
+                                CLIP["vision"][5])
+            feats.append((cg.encode_image(tp[j], img).cpu(),
+                          cg.encode_text(tp[j], torch.as_tensor(
+                              ids, device=d)).cpu()))
+        secs.append(time.perf_counter() - t0)
+    img_err = float((feats[0][0] - feats[1][0]).abs().max())
+    txt_err = float((feats[0][1] - feats[1][1]).abs().max())
+    with torch.no_grad():
+        img_d = cg.preprocess(torch.as_tensor(frames, device=dev),
+                              CLIP["vision"][5])
+        vis_ms = cuda_ms(lambda: cg.encode_image(tp[0], img_d), 5)
+    guide = cg.CLIPGuidance(cparams, device=dev)
+    guide.prepare_text(ids=ids[:1])
+    fr = CLIP["frame"]
+    field = field_from_numpy(tree, spec, dev, trainable=True)
+    before = [q.detach().clone() for q in field.leaves()]
+    opt = ttr.make_optimizer(1e-2, 1000)
+    cstep = ttr.make_clip_step(
+        spec, opt, guide.params, guide.text_z, fr, fr,
+        (0.9 * fr, 0.9 * fr, fr / 2.0, fr / 2.0), radius=CLIP["radius"],
+        num_samples=CLIP["samples"], clip_size=CLIP["vision"][5])
+    state = ttr.init_state(field, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(CLIP["steps"]):
+        state, loss = cstep(state, generator=gen)
+        losses.append(float(loss))
+    step_s = (time.perf_counter() - t0) / CLIP["steps"]
+    moved = float(sum((q.detach() - b_).abs().sum()
+                      for q, b_ in zip(state.params.leaves(), before)))
+    emit("clip_card_vs_cpu", nvidia_smi=smi_line(),
+         vision=list(CLIP["vision"]), text=list(CLIP["text"]),
+         proj=CLIP["proj"], weights_seconds=make_s,
+         image_features_max_abs=img_err, text_features_max_abs=txt_err,
+         limit=CLIP["limit"], card_s=secs[0], cpu_s=secs[1],
+         vision_tower_ms_batch2=vis_ms, step_frame=[fr, fr],
+         step_losses=losses, step_s=step_s, params_moved=moved,
+         steps=int(state.step))
+    assert img_err <= CLIP["limit"] and txt_err <= CLIP["limit"], (
+        img_err, txt_err)
+    assert all(np.isfinite(losses)) and moved > 0.0, (losses, moved)
+    del tp, guide, cstep, state, field
+
+    # ---- tools/hashgrid_chain.py on main path 4's hash-grid teacher (a
+    # workspace holding only that checkpoint: main_distill wrote the
+    # student after it)
+    ws = os.path.join(root, "chain_ws")
+    os.makedirs(os.path.join(ws, "checkpoints"))
+    for ext in ("", ".json"):
+        shutil.copy(p4["teacher"] + ext, os.path.join(
+            ws, "checkpoints", os.path.basename(p4["teacher"]) + ext))
+    c.reset_counts()
+    t0 = time.perf_counter()
+    rep = hashgrid_chain.main(["--workspace", ws] + CHAIN)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    ch = c.read_counts()
+    launches["asset_chain"] = ch
+    asset = rep["asset"]
+    emit("asset_chain", nvidia_smi=smi_line(), seconds=chain_s,
+         roundtrip=rep["pth_roundtrip"]["bit_exact"],
+         n_tensors=rep["pth_roundtrip"]["n_tensors"],
+         points=rep["sampling"]["n_points"],
+         pinned=rep["annotation"]["n_pinned"],
+         distill=asset["distill"], field_agreement=asset["field_agreement"],
+         image_psnr=asset["image_agreement"]["psnr_mean"],
+         image_ssim=asset["image_agreement"]["ssim_mean"],
+         sim_init=asset["sim_init"], interactive=asset["interactive"],
+         launches={k_: v for k_, v in ch.items() if v})
+    assert rep["pth_roundtrip"]["bit_exact"]
+    assert rep["sampling"]["n_points"] > 200
+    assert asset["interactive"]["fps"] > 0
+    assert ch["tile_deformed_w64"] > 0 and ch["tile_static_w64"] > 0, ch
+
+    # ---- parallel/dryrun.py: two gloo ranks sharing the card (NCCL
+    # refuses two ranks on one card), the toy checks and the 896x800 band
+    # frame, each against the same work in one process
+    t0 = time.perf_counter()
+    dr = dryrun.run(2, fast=True, production=("frame",), device="cuda",
+                    backend="gloo", threads=2)
+    dr_s = time.perf_counter() - t0
+    sharded = {}
+    for r_ in dr.values():
+        for k_, v in r_.pop("launches").items():
+            sharded[k_] = sharded.get(k_, 0) + v
+    launches["sharded"] = sharded
+    emit("sharded_dryrun", nvidia_smi=smi_line(), ranks=2, backend="gloo",
+         seconds=dr_s, checks=dr, launches_rank0=sharded)
+    f896 = dr["frame_production"]
+    assert f896["hw"] == [896, 800] and f896["max_abs"] < 2e-3, f896
+    assert dr["frame_production_paired"]["max_abs"] < 2e-3
+    assert sharded.get("tile_deformed_w64_default", 0) > 0, sharded
     return launches
 
 
@@ -2693,11 +2953,12 @@ def main() -> None:
             consts_b, st32, vid_b, spring_b(st32, fi)))
         st16 = sim.sim_step(consts_bf, sim.update_force(
             consts_bf, st16, vid_b, spring_b(st16, fi)))
-        if (fi + 1) % 50 == 0:
+        if (fi + 1) % LONG_DRAG_EVERY == 0:
             assert bool(torch.isfinite(st16.ddof).all()), fi
             drift.append(float((st16.ddof - st32.ddof).abs().max()
                                / st32.ddof.abs().max()))
-    long_drag = dict(steps=LONG_DRAG_STEPS, every=50, drift_rel=drift,
+    long_drag = dict(steps=LONG_DRAG_STEPS, every=LONG_DRAG_EVERY,
+                     drift_rel=drift,
                      finite=True, seconds=time.perf_counter() - t0)
     # one coupled frame on it, through the tile kernel
     ist_big = ist._replace(bend=bst._replace(ip_dx=1.05 * dx_big))
@@ -2809,6 +3070,9 @@ def main() -> None:
     # ---- main path 5: the point cloud and the live viewer
     viewer_launches = main_path_5(path4, train_launches)
 
+    # ---- the last modules: LPIPS, CLIP, the asset chain, the sharded paths
+    last_launches = main_path_6(path4, train_launches)
+
     # ---- every (kernel, mode, width) with its launches on its main path:
     # field kernel, the Newton frame (Wd 64) and the wide fidelity oracle
     # (Wd 128); tile kernel, main path 1 (deformed) and main path 2 (the
@@ -2845,6 +3109,21 @@ def main() -> None:
         assert n > 0, (key, viewer_launches)
         return {"viewer_path_launches": n}
 
+    def p6(**fields):
+        """This slice's launches of a row (``asset_chain_launches``: the
+        hash-grid chain; ``sharded_path_launches``: rank 0 of the sharded
+        dryrun), beside the row's own main-path count; a key ending in
+        "*" sums the keys it begins."""
+        out = {}
+        for name, (phase, key) in fields.items():
+            got = last_launches[phase]
+            n = (sum(v for k_, v in got.items() if k_.startswith(key[:-1])
+                     and k_.endswith("_paired"))
+                 if key.endswith("*") else got.get(key, 0))
+            assert n > 0, (name, key, got)
+            out[name] = n
+        return out
+
     fsrc = ("pienerf_tpu_torch/csrc/field_kernel.cu",
             "pienerf_tpu/ops/pallas/field_kernel.py:134")
     tsrc = ("pienerf_tpu_torch/csrc/tile_kernel.cu",
@@ -2854,11 +3133,16 @@ def main() -> None:
     probe_lines = {"onehot": 83, "dma": 127, "take": 187, "dynslice": 217}
     kernels = [
         row("field_kernel", *fsrc, newton_launches["field_w64"],
-            field_rows[64]["float32"], **bf16_field(64)),
+            field_rows[64]["float32"], **bf16_field(64),
+            **p6(sharded_path_launches=("sharded", "field_w64_float32"))),
         row("tile_kernel", *tsrc, frame_launches["tile_deformed_w64"],
-            tile_row),
+            tile_row, **p6(
+                asset_chain_launches=("asset_chain", "tile_deformed_w64"),
+                sharded_path_launches=("sharded",
+                                       "tile_deformed_w64_default"))),
         row("tile_kernel_static", *tsrc, cut_launches["tile_static_w64"],
-            rows_c["static"], **p5("tile_static_w64")),
+            rows_c["static"], **p5("tile_static_w64"),
+            **p6(asset_chain_launches=("asset_chain", "tile_static_w64"))),
         row("tile_kernel_cut", *tsrc, cut_launches["tile_cut_w64"],
             rows_c["cut"]),
         row("field_kernel_w128", *fsrc, wfid_launches["field_w128"],
@@ -2876,7 +3160,8 @@ def main() -> None:
         # bench frames; the paired static and cut modes on a cut frame run
         # below with the paired pack
         row("tile_kernel_paired", *tpsrc,
-            pframe_launches["tile_deformed_paired"], rows_p["deformed"]),
+            pframe_launches["tile_deformed_paired"], rows_p["deformed"],
+            **p6(sharded_path_launches=("sharded", "tile_deformed_*"))),
         row("tile_kernel_paired_static", *tpsrc,
             pcut_launches["tile_static_paired"], rows_p["static"]),
         row("tile_kernel_paired_cut", *tpsrc,

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -447,8 +447,8 @@ def _rhs_elastic_delta_dense(consts: SimConstants,
     return _apply(B.T, dP).reshape(n_k, 10, 3)
 
 
-def rhs_elastic_delta(consts: SimConstants,
-                      ddof: torch.Tensor) -> torch.Tensor:
+def rhs_elastic_delta(consts: SimConstants, ddof: torch.Tensor,
+                      reduce: Optional[Callable] = None) -> torch.Tensor:
     """E(dof) - E(rest): per IP dx^3 (mu (R - I) + lam (V - I)) contracted
     with dNx; exactly zero at rest. Through the dense B where the constants
     hold one, else through the cell-chunked operator applied forward and
@@ -456,8 +456,16 @@ def rhs_elastic_delta(consts: SimConstants,
     gather before and the per-node gather-and-sum after. With bf16 blocks
     (``cast_B_bf16``) the delta formulation keeps every contracted
     quantity O(deformation), so the 2^-8 relative rounding perturbs the
-    forces by about 0.4%; global_inv and the mass product stay f32."""
+    forces by about 0.4%; global_inv and the mass product stay f32.
+
+    ``reduce`` takes the chunked operator's [K, 10, 3] sum over the
+    constants' chunks and returns the sum over every chunk of the scene:
+    the IP-sharded step (``parallel.sharding``) holds a share of the chunks
+    on each rank and all-reduces there. None: the constants hold them
+    all."""
     if consts.B is not None:
+        if reduce is not None:
+            raise ValueError("a sharded step runs the chunked operator")
         return _rhs_elastic_delta_dense(consts, ddof)
     n_k = ddof.shape[0]
     C, S = consts.chunk_mu.shape
@@ -479,12 +487,15 @@ def rhs_elastic_delta(consts: SimConstants,
     contrib = _apply(Dc.transpose(1, 2), dP).reshape(C * 8, 10, 3)
     # node scatter as a gather: row C * 8 is the zero row the padding names
     contrib = torch.cat([contrib, contrib.new_zeros((1, 10, 3))], 0)
-    return contrib[consts.node_gather].sum(dim=1)
+    out = contrib[consts.node_gather].sum(dim=1)
+    return out if reduce is None else reduce(out)
 
 
-def sim_step(consts: SimConstants, state: SimState) -> SimState:
+def sim_step(consts: SimConstants, state: SimState,
+             reduce: Optional[Callable] = None) -> SimState:
     """One implicit local-global step (delta form of the reference's
-    dof = dof_rest + G^-1 (momentum + E(dof) - rhs_rest))."""
+    dof = dof_rest + G^-1 (momentum + E(dof) - rhs_rest)). ``reduce``:
+    see ``rhs_elastic_delta``."""
     n_k = state.ddof.shape[0]
     dim = n_k * 10
     ddof_tilde = state.ddof + consts.dt * state.dof_vel
@@ -492,7 +503,7 @@ def sim_step(consts: SimConstants, state: SimState) -> SimState:
                 .reshape(n_k, 10, 3) + state.dof_f + consts.rhs_gravity)
     ddof = state.ddof
     for _ in range(consts.iters):
-        rhs = momentum + rhs_elastic_delta(consts, ddof)
+        rhs = momentum + rhs_elastic_delta(consts, ddof, reduce)
         ddof = (consts.global_inv @ rhs.reshape(dim, 3)).reshape(n_k, 10, 3)
     vel = (ddof - state.ddof) / consts.dt * 0.998
     return SimState(ddof=ddof, dof_vel=vel, dof_f=state.dof_f)

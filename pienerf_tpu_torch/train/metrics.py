@@ -1,40 +1,17 @@
-"""Quality metrics: PSNR, SSIM (reference: nerf/utils.py:231-339).
+"""Quality metrics: PSNR, SSIM, LPIPS (reference: nerf/utils.py:231-339).
 
 Port of ``pienerf_tpu.train.metrics`` (numpy and scipy, the same
-arithmetic). LPIPS and CLIP guidance need pretrained weights that are not
-vendored; ``guidance_weights`` finds them where the JAX package looks
-(``$PIENERF_LPIPS_WEIGHTS`` / ``$PIENERF_CLIP_WEIGHTS``, else the port's
-``assets/``). Without them the trainer logs and goes on as JAX's does; with
-them the port raises, since the guidance nets are not ported yet (ROADMAP
-section 1, item 11).
+arithmetic). LPIPS needs pretrained perceptual weights that are not
+vendored (``train/lpips.py``); its meter raises with the export recipe
+when measured without them.
 """
 
 from __future__ import annotations
 
-import os
-from typing import List, Optional
+from typing import List
 
 import numpy as np
-
-_ASSETS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "assets")
-_GUIDANCE = {"lpips": ("PIENERF_LPIPS_WEIGHTS", "lpips_alex.npz"),
-             "clip": ("PIENERF_CLIP_WEIGHTS", "clip_vit_b16.npz")}
-
-
-def guidance_weights(kind: str) -> Optional[str]:
-    """The weight file of "lpips" or "clip" where the JAX package would
-    load one, else None."""
-    env, name = _GUIDANCE[kind]
-    p = os.environ.get(env, os.path.join(_ASSETS, name))
-    return p if os.path.exists(p) else None
-
-
-def guidance_unported(kind: str):
-    return NotImplementedError(
-        f"{kind} weights found at {guidance_weights(kind)}: the {kind} net "
-        "is not ported yet (ROADMAP section 1, item 11); unset the weights "
-        "to train as the JAX package does without them")
+import torch
 
 
 def psnr(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -107,16 +84,36 @@ class SSIMMeter(PSNRMeter):
 
 
 class LPIPSMeter(PSNRMeter):
-    """LPIPS(alex): ``available()`` is False without its weights, and the
-    evaluation then leaves it out, as JAX's does; with them ``update``
-    raises (the LPIPS net is ROADMAP section 1, item 11)."""
+    """LPIPS(alex) through ``train/lpips.py`` on ``device`` (default the
+    card): ``available()`` gates use; ``update`` loads the weight file
+    the first time, and raises with the export recipe without one."""
+
+    def __init__(self, device=None):
+        from pienerf_tpu_torch.device import resolve_device
+
+        super().__init__()
+        self.device = resolve_device(device)
+        self._w = None
 
     @staticmethod
     def available() -> bool:
-        return guidance_weights("lpips") is not None
+        from pienerf_tpu_torch.train import lpips as lp
+        return lp.available()
 
     def update(self, pred, gt):
-        raise guidance_unported("lpips")
+        from pienerf_tpu_torch.train import lpips as lp
+        from pienerf_tpu_torch.weights import lpips_to_torch
+
+        if self._w is None:
+            self._w = lpips_to_torch(lp.load_weights(), self.device)
+
+        def t(img):
+            return torch.as_tensor(np.asarray(img, np.float32),
+                                   device=self.device)[None]
+
+        with torch.no_grad():
+            v = lp.lpips(t(pred), t(gt), self._w)
+        self.vals.append(float(v[0]))
 
     def report(self) -> str:
         return f"LPIPS = {self.measure():.6f}"

@@ -22,7 +22,7 @@ from __future__ import annotations
 import glob
 import os
 import time
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,9 +37,7 @@ from pienerf_tpu_torch.models import network
 from pienerf_tpu_torch.ops import grid as gridlib
 from pienerf_tpu_torch.render import fast as fastlib
 from pienerf_tpu_torch.render import renderer
-from pienerf_tpu_torch.train.metrics import (LPIPSMeter, PSNRMeter,
-                                             SSIMMeter, guidance_unported,
-                                             guidance_weights)
+from pienerf_tpu_torch.train.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
 from pienerf_tpu_torch.train.optim import Adam, AdamState, apply_updates
 from pienerf_tpu_torch.weights import field_from_numpy, field_to_numpy
 
@@ -100,7 +98,8 @@ def init_state(field: network.FieldMLP, optimizer: Adam,
 def make_train_step(spec: network.NetworkSpec,
                     settings: renderer.RenderSettings, optimizer: Adam,
                     ema_decay: float = 0.95, use_fast_path: bool = False,
-                    patch_size: int = 1, lpips_weights=None):
+                    patch_size: int = 1, lpips_weights=None,
+                    reduce=None):
     """The train step.
 
     ``step(state, bitfield, batch, generator=None, draws=None)`` with batch
@@ -112,10 +111,15 @@ def make_train_step(spec: network.NetworkSpec,
     on the occupancy march or "u_coarse" [N, K1] / "u_fine" [N, K2] on the
     hierarchical path (``use_fast_path``, the mlp backbone's); what is
     missing is drawn from ``generator`` in that order. ``spec`` is read
-    from the field itself."""
-    if lpips_weights is not None:
-        raise guidance_unported("lpips")
+    from the field itself. With ``lpips_weights`` (tensors,
+    ``weights.lpips_to_torch``) and ``patch_size`` >= 32, the rays arrive
+    patch-major and the loss adds 1e-3 x the patches' mean LPIPS (the
+    reference's perceptual patch loss, nerf/trainer.py:207-218).
+    ``reduce`` (data parallelism, ``parallel.sharding``) averages a list
+    of tensors over the ranks in place: the gradients before the
+    optimizer, and the returned loss."""
     fst = fast_settings(settings) if use_fast_path else None
+    use_lpips = patch_size >= 32 and lpips_weights is not None
 
     def train_step(state: TrainState, bitfield: torch.Tensor,
                    batch: Dict[str, torch.Tensor],
@@ -148,20 +152,117 @@ def make_train_step(spec: network.NetworkSpec,
         sq = (out["image"] - target) ** 2
         loss = sq.mean()
         per_ray = sq.mean(dim=-1)
-        leaves = field.leaves()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
-        updates, opt_state = optimizer.update(grads, state.opt_state)
-        apply_updates(leaves, updates)
-        with torch.no_grad():
-            for e, p in zip(state.ema_params.leaves(), leaves):
-                e.copy_(ema_decay * e + (1.0 - ema_decay) * p)
-        new = TrainState(field, opt_state, state.ema_params, state.step + 1)
-        return new, {"loss": loss.detach(), "per_ray_loss": per_ray.detach(),
+        if use_lpips:
+            from pienerf_tpu_torch.train import lpips as lp
+            p = patch_size
+            loss = loss + 1e-3 * lp.lpips(
+                out["image"].reshape(-1, p, p, 3),
+                target.reshape(-1, p, p, 3), lpips_weights).mean()
+        new, grads = _descend(state, loss, optimizer, ema_decay, reduce)
+        loss = loss.detach()
+        if reduce is not None:
+            reduce([loss])
+        return new, {"loss": loss, "per_ray_loss": per_ray.detach(),
                      "grads": grads}
 
     return train_step
+
+
+def _descend(state: TrainState, loss: torch.Tensor, optimizer: Adam,
+             ema_decay: float, reduce=None):
+    """The gradient of ``loss`` over the params (averaged over the ranks
+    by ``reduce``), one optimizer update in place and the EMA: (the next
+    state, the gradients)."""
+    field = state.params
+    leaves = field.leaves()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    if reduce is not None:
+        reduce(grads)
+    updates, opt_state = optimizer.update(grads, state.opt_state)
+    apply_updates(leaves, updates)
+    with torch.no_grad():
+        for e, p in zip(state.ema_params.leaves(), leaves):
+            e.copy_(ema_decay * e + (1.0 - ema_decay) * p)
+    return TrainState(field, opt_state, state.ema_params,
+                      state.step + 1), grads
+
+
+def orbit_pose(u: torch.Tensor, radius: float) -> torch.Tensor:
+    """The CLIP step's random orbit pose from two uniforms u [2]: theta in
+    [pi/3, 2pi/3], phi in [0, 2pi), the camera on the sphere of ``radius``
+    looking at the origin, built as the reference's rand_poses builds it
+    (nerf/provider.py:57-91; ``data.provider.rand_poses``): [4, 4].
+
+    The JAX package's CLIP step takes the same centre and writes -forward
+    into the third column (pienerf_tpu/train/trainer.py:197-208), while
+    its rays run along +third column (data/rays.py), so its camera faces
+    away from the scene; where the box lies behind it, its near / far test
+    returns a reversed interval and the frame is no image (NaN, or values
+    far outside [0, 1]; ROADMAP section 3). The port looks at the scene,
+    as the reference does."""
+    theta = np.pi / 3.0 + u[0] * np.pi / 3.0
+    phi = u[1] * 2.0 * np.pi
+    center = radius * torch.stack([
+        torch.sin(theta) * torch.sin(phi), torch.cos(theta),
+        torch.sin(theta) * torch.cos(phi)])
+
+    def norm(v):
+        return v / (torch.linalg.norm(v) + 1e-10)
+
+    forward = -norm(center)
+    up = torch.tensor([0.0, -1.0, 0.0], device=u.device)
+    right = norm(torch.linalg.cross(forward, up))
+    up2 = norm(torch.linalg.cross(right, forward))
+    return torch.cat([torch.stack([right, up2, forward, center], dim=1),
+                      torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=u.device)])
+
+
+def make_clip_step(spec: network.NetworkSpec, optimizer: Adam, clip_params,
+                   text_z: torch.Tensor, rH: int, rW: int, intrinsics,
+                   radius: float = 1.0, bound: float = 1.0,
+                   num_samples: int = 64, clip_size: int = 224,
+                   ema_decay: float = 0.95):
+    """The CLIP-guided step (reference rand_pose mode, nerf/trainer.py:
+    163-178 + provider.py:277-297): a low-resolution full frame [rH, rW]
+    from a random orbit pose (``orbit_pose``, facing the scene) through
+    the hierarchical renderer on white, descending the negative
+    image-text cosine similarity at ``clip_size``.
+
+    ``step(state, generator=None, draws=None) -> (state, loss)`` updates
+    the state in place. ``draws`` gives its random numbers as the JAX step
+    draws them: "u_pose" [2], then the renderer's "u_coarse" [rH rW, K1]
+    and "u_fine" [rH rW, K2]; what is missing is drawn from
+    ``generator``."""
+    from pienerf_tpu_torch.data.rays import get_rays_full
+    from pienerf_tpu_torch.train import clip_guidance as cg
+
+    fst = fastlib.FastSettings(bound=bound, num_coarse=num_samples // 2,
+                               num_fine=num_samples - num_samples // 2)
+
+    def clip_step(state: TrainState,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Dict[str, torch.Tensor]] = None):
+        d = dict(draws or {})
+        dev = state.step.device
+        u = d.get("u_pose")
+        if u is None:
+            gdev = generator.device if generator is not None else dev
+            u = torch.rand((2,), generator=generator, device=gdev)
+        pose = orbit_pose(u.to(dev), radius)
+        rays_o, rays_d = get_rays_full(pose, intrinsics, rH, rW)
+        out = fastlib.render_rays_fast(
+            state.params, fst, rays_o, rays_d,
+            torch.ones((rays_o.shape[0], 3), device=dev),
+            generator=generator, u_coarse=d.get("u_coarse"),
+            u_fine=d.get("u_fine"))
+        img = out["image"].reshape(1, rH, rW, 3)
+        loss = cg.clip_loss(clip_params, img, text_z, size=clip_size)
+        new, _ = _descend(state, loss, optimizer, ema_decay)
+        return new, loss.detach()
+
+    return clip_step
 
 
 class Trainer:
@@ -211,11 +312,17 @@ class Trainer:
         self.state = init_state(field, self.optimizer)
         self.grid = gridlib.init(cfg.cascade, device=self.device)
         self._use_fast_train = self.spec.backbone == "mlp"
+        self._lpips_weights = None
         if cfg.patch_size > 1:
-            if guidance_weights("lpips") is not None:
-                raise guidance_unported("lpips")
-            print("[trainer] patch mode without LPIPS weights: "
-                  "MSE-only patch loss (see train/lpips.py to enable)")
+            from pienerf_tpu_torch.train import lpips as lp
+            from pienerf_tpu_torch.weights import lpips_to_torch
+
+            if lp.available():
+                self._lpips_weights = lpips_to_torch(lp.load_weights(),
+                                                     self.device)
+            else:
+                print("[trainer] patch mode without LPIPS weights: "
+                      "MSE-only patch loss (see train/lpips.py to enable)")
         self._validated = False
         self._rebuild_train_step()
 
@@ -254,7 +361,8 @@ class Trainer:
             self.spec, self.settings, self.optimizer,
             ema_decay=self._ema_step_decay,
             use_fast_path=self._use_fast_train,
-            patch_size=self.cfg.patch_size)
+            patch_size=self.cfg.patch_size,
+            lpips_weights=self._lpips_weights)
 
     def _set_fields(self, params, ema) -> None:
         """Put params / EMA trees on the device as the train state, with
@@ -415,20 +523,63 @@ class Trainer:
             self._write_losses(loss_np, first_step, chunk_ends, host_images)
         return float(loss_np.mean())
 
-    # -- CLIP guidance (reference rand_pose mode) ---------------------------
+    # -- CLIP guidance (reference rand_pose mode, trainer.py:138-141) ------
 
-    def train_clip_iterations(self, H: int, W: int, intrinsics,
-                              n_iters: int, clip_size: int = 224) -> float:
-        """CLIP-guided steps: without CLIP weights (always, here) a log
-        line and no step, as the JAX trainer does; with them the port
-        raises (ROADMAP section 1, item 11)."""
-        if guidance_weights("clip") is not None:
-            raise guidance_unported("clip")
-        if not getattr(self, "_clip_logged", False):
+    def _clip_guidance(self):
+        """The CLIPGuidance with its text prepared, or None with a logged
+        reason (weights and tokenizer are not vendored: see
+        train/clip_guidance.py). A caller may set ``_clip_guide`` to a
+        guide prepared from token ids."""
+        if hasattr(self, "_clip_guide"):
+            return self._clip_guide
+        from pienerf_tpu_torch.train import clip_guidance as cg
+
+        self._clip_guide = None
+        if not cg.available():
             self.log("[trainer] rand_pose mode without CLIP weights: "
                      "skipping CLIP guidance (see train/clip_guidance.py)")
-            self._clip_logged = True
-        return float("nan")
+            return None
+        tok_dir = os.environ.get("PIENERF_CLIP_TOKENIZER")
+        if not tok_dir:
+            self.log("[trainer] CLIP weights present but no tokenizer "
+                     "(set PIENERF_CLIP_TOKENIZER to a local "
+                     "CLIPTokenizer dir); skipping CLIP guidance")
+            return None
+        guide = cg.CLIPGuidance(device=self.device)
+        guide.prepare_text([self.cfg.clip_text], tokenizer_dir=tok_dir)
+        self._clip_guide = guide
+        return guide
+
+    def train_clip_iterations(self, H: int, W: int, intrinsics,
+                              n_iters: int, clip_size: int = 224,
+                              draws: Optional[Sequence[dict]] = None
+                              ) -> float:
+        """``n_iters`` CLIP-guided steps at the reference's low-resolution
+        full-frame economy (provider.py:287-289: rH = H / sqrt(H W /
+        num_rays)); the mean loss, or NaN without a guide. ``draws``: each
+        step's random numbers (``make_clip_step``), else the trainer's
+        generator draws them."""
+        guide = self._clip_guidance()
+        if guide is None:
+            return float("nan")
+        s = float(np.sqrt(H * W / self.cfg.num_rays))
+        rH, rW = max(int(H / s), 8), max(int(W / s), 8)
+        intr = tuple(float(v) / s for v in intrinsics)
+        key = (rH, rW, intr, clip_size)
+        if getattr(self, "_clip_step_key", None) != key:
+            self._clip_step_fn = make_clip_step(
+                self.spec, self.optimizer, guide.params, guide.text_z,
+                rH, rW, intr, radius=self.cfg.radius, bound=self.cfg.bound,
+                num_samples=self.cfg.train_max_samples, clip_size=clip_size)
+            self._clip_step_key = key
+        losses = []
+        for i in range(n_iters):
+            self.state, loss = self._clip_step_fn(
+                self.state, generator=self.gen,
+                draws=draws[i] if draws is not None else None)
+            self.global_step += 1
+            losses.append(loss)
+        return float(np.mean(torch.stack(losses).double().cpu().numpy()))
 
     def train(self, train_dataset, valid_dataset=None,
               max_iters: Optional[int] = None) -> None:
@@ -505,7 +656,8 @@ class Trainer:
         per-view PNGs under <workspace>/validation (reference
         nerf/trainer.py:748-787)."""
         meter, ssim_m = PSNRMeter(), SSIMMeter()
-        lpips_m = LPIPSMeter() if LPIPSMeter.available() else None
+        lpips_m = (LPIPSMeter(self.device) if LPIPSMeter.available()
+                   else None)
         out_dir = os.path.join(self.workspace, "validation")
         if save_images:
             os.makedirs(out_dir, exist_ok=True)

@@ -213,3 +213,25 @@ def train_state_to_numpy(state) -> dict:
                  "mu": _tree_like(field, [a(m) for m in o.mu]),
                  "nu": _tree_like(field, [a(v) for v in o.nu])},
                 {"count": a(o.schedule_count)})}}
+
+
+def lpips_to_torch(w: Mapping[str, Any], device) -> dict:
+    """LPIPS-alex weights (``train.lpips.load_weights``: numpy conv{i}_w,
+    conv{i}_b, lin{i}_w) -> f32 tensors on ``device``, the same keys."""
+    return {k: torch.tensor(_np(v), device=device) for k, v in w.items()}
+
+
+def clip_to_torch(params: Mapping[str, Any], device) -> dict:
+    """CLIP params (``train.clip_guidance.import_hf_state_dict``: towers
+    of numpy arrays, a list of layer dicts and the int head count) -> the
+    same tree with f32 tensors on ``device``."""
+    def conv(v):
+        if isinstance(v, Mapping):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        if isinstance(v, (int, np.integer)):
+            return int(v)
+        return torch.tensor(_np(v), device=device)
+
+    return conv(params)

@@ -21,6 +21,7 @@ from pienerf_tpu.config import PieNeRFConfig as JCfg
 from pienerf_tpu.data import provider as jprov
 from pienerf_tpu.data import rays as jrays
 from pienerf_tpu.data import synthetic as jsyn
+from pienerf_tpu.train import lpips as jlpips
 from pienerf_tpu.train import metrics as jmet
 from pienerf_tpu.utils import mesh as jmesh
 from pienerf_tpu_torch.config import PieNeRFConfig as TCfg
@@ -308,10 +309,10 @@ def test_colmap_loader_rand_poses_and_slerp(tmp_path):
 
 # ---- metrics and meshes ------------------------------------------------------
 
-def test_metrics_exact(monkeypatch):
+def test_metrics_exact(monkeypatch, tmp_path):
     """psnr, ssim (gray and RGB) and the meters equal JAX's; LPIPS is
-    unavailable without weights, and with weights present the port
-    raises, naming the roadmap item."""
+    unavailable without weights, and with a weight file (seeded random
+    AlexNet-LPIPS weights) its meter equals JAX's within 1e-5 relative."""
     rs = np.random.RandomState(1)
     a = rs.rand(40, 44, 3).astype(np.float32)
     b = np.clip(a + rs.randn(40, 44, 3).astype(np.float32) * 0.05, 0, 1)
@@ -328,10 +329,20 @@ def test_metrics_exact(monkeypatch):
         assert tm_.report() == jm_.report()
     monkeypatch.delenv("PIENERF_LPIPS_WEIGHTS", raising=False)
     assert not tmet.LPIPSMeter.available()
-    monkeypatch.setenv("PIENERF_LPIPS_WEIGHTS", __file__)
-    assert tmet.LPIPSMeter.available()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmet.LPIPSMeter().update(a, b)
+    w = {}
+    for i, (ci, co, k, _, _) in enumerate(jlpips._ALEX):
+        w[f"conv{i}_w"] = rs.randn(co, ci, k, k).astype(np.float32) * 0.05
+        w[f"conv{i}_b"] = np.zeros(co, np.float32)
+        w[f"lin{i}_w"] = np.abs(rs.randn(co)).astype(np.float32)
+    np.savez(tmp_path / "lpips_alex.npz", **w)
+    monkeypatch.setenv("PIENERF_LPIPS_WEIGHTS",
+                       str(tmp_path / "lpips_alex.npz"))
+    assert tmet.LPIPSMeter.available() and jmet.LPIPSMeter.available()
+    tl, jl = tmet.LPIPSMeter("cpu"), jmet.LPIPSMeter()
+    tl.update(a, b)
+    jl.update(a, b)
+    assert tl.measure() > 0
+    np.testing.assert_allclose(tl.measure(), jl.measure(), rtol=1e-5)
 
 
 def test_mesh_extraction_exact(tmp_path):

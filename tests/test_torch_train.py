@@ -587,8 +587,13 @@ def test_trainer_iterations_error_map_and_precision_tail(tmp_path):
 def test_host_dataset_guidance_and_geometry(tmp_path, monkeypatch, capsys):
     """Above $PIENERF_MAX_DEVICE_DATASET the images stay on the host and
     each step copies its pixels; without LPIPS / CLIP weights patch mode
-    trains MSE-only and rand_pose 0 skips guidance with JAX's log lines,
-    and with CLIP weights present the port raises (ROADMAP item 11);
+    trains MSE-only and rand_pose 0 skips guidance with JAX's log lines;
+    with a CLIP guide prepared from token ids (seeded tiny weights, as
+    tests/test_torch_clip.py's), train_clip_iterations from JAX's state
+    with JAX's draws builds the step JAX's trainer builds (the same frame
+    size and intrinsics) and its loss equals JAX's step's within 1e-5
+    relative, the orbit pose the reference's (test_torch_clip.py's
+    jax_clip_step: JAX's own faces away from the scene);
     save_mesh and save_point_cloud write their files."""
     from pienerf_tpu_torch.data import synthetic
     ds = synthetic.make_dataset(n_views=2, H=32, W=32)
@@ -608,9 +613,37 @@ def test_host_dataset_guidance_and_geometry(tmp_path, monkeypatch, capsys):
     tr.train(ds, max_iters=3)
     assert "skipping CLIP guidance" in capsys.readouterr().out
     assert tr.global_step == 0
-    monkeypatch.setenv("PIENERF_CLIP_WEIGHTS", __file__)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tr.train_clip_iterations(32, 32, ds.intrinsics, 1)
+    from test_torch_clip import _clip_draws, hf_state_dict, jax_clip_step
+
+    from pienerf_tpu.train import clip_guidance as jcg
+    from pienerf_tpu_torch.train import clip_guidance as tcg
+    jcfg, _ = _cfgs(str(tmp_path / "wsj"), "mlp")
+    jcfg.num_rays, jcfg.train_max_samples = 256, 16
+    # radius 2, as tests/test_clip_guidance.py: at the default 5 a few
+    # grazing rays of the frame render NaN in both packages
+    jcfg.radius = tr.cfg.radius = 2.0
+    jt = jtr.Trainer("ngp", jcfg, use_checkpoint="scratch")
+    tr.state = W.train_state_from_numpy(jax.device_get(jt.state),
+                                        tr.spec, "cpu")
+    cparams = jcg.import_hf_state_dict(hf_state_dict(), 2, 2)
+    ids = np.random.RandomState(0).randint(0, 64, size=(1, 8))
+    jt._clip_guide = jcg.CLIPGuidance(cparams)
+    jt._clip_guide.prepare_text(ids=ids)
+    tr._clip_guide = tcg.CLIPGuidance(cparams, device="cpu")
+    tr._clip_guide.prepare_text(ids=ids)
+    _, key = jax.random.split(jt.rng)               # trainer.py:683
+    state0 = jt.state
+    jt.train_clip_iterations(32, 32, ds.intrinsics, 1, clip_size=32)
+    tl = tr.train_clip_iterations(32, 32, ds.intrinsics, 1, clip_size=32,
+                                  draws=[_clip_draws(key, 256, 16)])
+    rH, rW, intr, size = jt._clip_step_key
+    assert tr._clip_step_key == (rH, rW, intr, size) == (16, 16, tuple(
+        v / 2 for v in ds.intrinsics), 32)
+    assert tr.global_step == jt.global_step == 1
+    _, jl = jax_clip_step(jt.spec, jt.optimizer, cparams,
+                          jt._clip_guide.text_z, rH, rW, intr, 2.0, 16,
+                          32)(state0, key)
+    assert np.isfinite(tl) and abs(tl / float(jl) - 1.0) <= 1e-5, (tl, jl)
     lin = np.linspace(-1, 1, 16, dtype=np.float32)
     thr = float(np.median(tt._density_np(np.stack(np.meshgrid(
         lin, lin, lin, indexing="ij"), -1).reshape(-1, 3))))
