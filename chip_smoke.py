@@ -88,15 +88,23 @@ commit 9fe92db (``dynslice_fetch`` as one warp-wide access a row,
 (``pr6_ms``), and for the tile kernel's rows, whose window scan is one
 pass a sub-segment since commit db7d684, that commit's time (``pr7_ms``).
 tile_split runs the tile kernel's timed instantiation on the bench
-inputs (deformed, both widths) and the cut pass's: its output equal to
-the untimed kernel's, where each tile's cycles go (window staging, scan,
-bend and blend, MLP, composite) and how the tiles fill the card's slots.
+inputs (deformed, both widths) and the cut pass's, in bf16 and in f32: its
+output equal to the untimed kernel's, where each tile's cycles go (window
+staging, scan, bend and blend, MLP, composite) and how the tiles fill the
+card's slots. Every tile check times the f32 kernel too (the dtype
+main_gui and main_viewer run without -O; its MLP register-blocked on the
+CUDA cores), and frame_f32 runs main path 1 in f32. With
+PIENERF_TILE_BASELINE set to an unpacked checkout of another commit (the
+parent, say), the script also builds that commit's tile libraries and
+times each f32 tile row and the f32 frame on them in turns with this
+tree's (``before_ms``), their outputs held equal bit for bit.
 field_kernel_embedded holds the
 f32 field kernel at Wd 128 on the embedded checkpoint bit for bit to Wd 64;
 big_sim holds bf16 operator storage to the JAX package's own reading and
-runs a 100-step drag under it.
+runs a 50-step drag under it.
 
     python3 chip_smoke.py
+    PIENERF_TILE_BASELINE=build/parent python3 chip_smoke.py  # + before_ms
 
 Needs one CUDA card and nvcc (sm_90a). Every phase prints one JSON line;
 any failure raises, so the script exits non-zero. The last line is
@@ -200,7 +208,7 @@ PR7_MS = {"tile_kernel": 3.297, "tile_kernel_static": 8.210,
 # port's bf16 path no longer does what JAX's does.
 BF16_STEP_REL_JAX = 0.05247
 BF16_STEP_REL_TOL = 0.15
-LONG_DRAG_STEPS = 100             # the bf16 long drag, read every 25 steps
+LONG_DRAG_STEPS = 50              # the bf16 long drag, read every 25 steps
 LONG_DRAG_EVERY = 25
 # the trex proxy's cut box (tools/trex_proxy.py:42) and the resolution of
 # the cut-mode fidelity frame
@@ -339,9 +347,9 @@ def occupancy(_build, inst: dict) -> tuple:
     else:
         mode = (int(inst["mode"] != "static"), int(inst["mode"] == "cut"))
         if inst["timed"]:
-            lib = _build.library("tile")
+            lib = _build.library("tile_timed")
             rc = lib.pienerf_render_tiles_timed_occupancy(
-                mode[1], inst["wd"], 64, *out)
+                int(inst["bf16"]), mode[1], inst["wd"], 64, *out)
         elif inst["paired"]:
             lib = _build.library("tile_paired")
             rc = lib.pienerf_render_tiles_paired_occupancy(
@@ -458,10 +466,106 @@ def field_check(phase, fk, pw, specs, rng) -> dict:
     return rows
 
 
+def printed(counts: dict, key: str) -> int:
+    """The launches of ``key`` in counts an entry point printed (a tile
+    name ends in its dtype there: ``key``_float32, ``key``_bfloat16) or
+    read_counts returned (``key`` itself)."""
+    return sum(v for k, v in counts.items()
+               if k in (key, f"{key}_float32", f"{key}_bfloat16"))
+
+
 def psnr(a, b) -> float:
     mse = float(np.mean((np.asarray(a, np.float64)
                          - np.asarray(b, np.float64)) ** 2))
     return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+def tile_bound(tk, pw, args, kw, out, segments, peak_mlp) -> dict:
+    """The tile kernel's bound on one pass's inputs: the reference's
+    operations per executed sample (the field MLP at ``peak_mlp``, the f32
+    or the bf16 peak; in the bending modes one squared distance per window
+    row, 8 flops, then num_seek min passes over the window,
+    tile_kernel.py:406-420, on the CUDA cores) against the bytes read and
+    written once (the static march reads no candidates)."""
+    samples = segments * tk.T2 * kw["Ks"]
+    op_s = 2.0 * FIELD_MACS[pw.shape[-1]] * samples / peak_mlp
+    read = args
+    if kw["deformed"]:
+        op_s += (8.0 + kw["num_seek"]) * kw["Wn"] * samples / PEAK_F32
+    else:
+        read = (args[0], args[2], args[3])   # tile_sc, params, dirs
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in read) + pw.numel() * 4 + out.numel() * 4
+    return dict(executed_segments=segments,
+                bound_ms=max(op_s, nbytes / PEAK_BYTES) * 1e3,
+                bound_by=("operations" if op_s > nbytes / PEAK_BYTES
+                          else "bytes"))
+
+
+# the parent commit's tile libraries for the f32 before / after columns,
+# built from $PIENERF_TILE_BASELINE/pienerf_tpu_torch/csrc when that is set
+# (an unpacked checkout of the parent); empty otherwise
+BASELINE_ENV = "PIENERF_TILE_BASELINE"
+BASELINE_LIBS = {}
+
+
+def start_baseline(_build) -> dict:
+    """Start one nvcc per baseline tile library, beside the main build."""
+    root = os.environ.get(BASELINE_ENV)
+    if not root:
+        return {}
+    csrc = os.path.join(os.path.abspath(root), "pienerf_tpu_torch", "csrc")
+    out = os.path.join(ROOT, "build", "tile_baseline")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name in ("tile", "tile_block"):
+        so = os.path.join(out, f"lib{name}.so")
+        cmd = [_build._nvcc()] + _build.NVCC_FLAGS + [
+            "-o", so, os.path.join(csrc, _build.SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    return procs
+
+
+def finish_baseline(procs) -> None:
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate(timeout=900)
+        assert proc.returncode == 0, log[-4000:]
+        lib = ctypes.CDLL(so)
+        lib.pienerf_error_string.restype = ctypes.c_char_p
+        lib.pienerf_error_string.argtypes = [ctypes.c_int]
+        BASELINE_LIBS[name] = lib
+
+
+def on_baseline(fn):
+    """fn() with the baseline tile libraries in place of this tree's."""
+    from pienerf_tpu_torch.kernels import _build
+    saved = dict(_build._libs)
+    _build._libs.update(BASELINE_LIBS)
+    try:
+        return fn()
+    finally:
+        _build._libs.clear()
+        _build._libs.update(saved)
+
+
+def timed_f32(run, reps) -> dict:
+    """``run``'s device ms; with the baseline libraries also theirs, in
+    turns (baseline, this tree, this tree, baseline), and whether the two
+    outputs are equal bit for bit."""
+    import torch
+    if not BASELINE_LIBS:
+        return {"ms": cuda_ms(run, reps)}
+    b = [on_baseline(lambda: cuda_ms(run, reps))]
+    n = [cuda_ms(run, reps), cuda_ms(run, reps)]
+    b.append(on_baseline(lambda: cuda_ms(run, reps)))
+    out_b = on_baseline(run)
+    out_n = run()
+    torch.cuda.synchronize()
+    return {"ms": float(np.mean(n)), "ms_reps": n,
+            "before_ms": float(np.mean(b)), "before_ms_reps": b,
+            "before_equal": bool(torch.equal(out_b, out_n))}
 
 
 def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
@@ -475,30 +579,41 @@ def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
     summation order immaterial: with every block filled, one f32 rounding
     difference can flip a ray's T_thresh test and move it by a sample's
     weight, which the f32 line reports as ``filled_*`` without asserting.
-    Returns the bf16 row with the kernel's ms, the plain version's ms and
-    the bound."""
+    Each line carries its kernel's ms on ``pw`` (f32 beside the baseline's
+    when one is built), the plain version's ms and the bound at that
+    dtype's peak. Returns {"float32": row, "bfloat16": row}."""
     import torch
     spec32, spec16 = specs
-    stats = {}
+    stats, stats32 = {}, {}
 
-    def f32_pair(weights):
+    def f32_pair(weights, st=None):
         ko = tk.render_tiles(spec32, weights, *args, **kw)
-        po = tk.render_tiles_plain(spec32, weights, *args, **kw)
+        po = tk.render_tiles_plain(spec32, weights, *args, **kw,
+                                   **({} if st is None else {"stats": st}))
         torch.cuda.synchronize()
         return ko, po, (ko[:, 0:5] - po[:, 0:5]).abs()
 
-    ko, po, err = f32_pair(pw if pw_f32 is None else pw_f32)
+    ko, po, err = f32_pair(pw if pw_f32 is None else pw_f32,
+                           stats32 if pw_f32 is None else None)
     drop_eq = bool(torch.equal(ko[:, 5], po[:, 5]))
     row = dict(width=pw.shape[-1], dtype="float32",
                max_abs_err=float(err.max()), dropped_equal=drop_eq,
                dropped=float(ko[:, 5, 0].sum()))
     ko32 = ko
     if pw_f32 is not None:
-        ko32, _, err_f = f32_pair(pw)
+        ko32, _, err_f = f32_pair(pw, stats32)
         row.update(filled_max_abs_err=float(err_f.max()),
                    filled_rays_over_1e4=int((err_f > 1e-4).any(1).sum()))
+    row.update(timed_f32(lambda: tk.render_tiles(spec32, pw, *args, **kw),
+                         3))
+    row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
+        spec32, pw, *args, **kw), 1)
+    row.update(tile_bound(tk, pw, args, kw, ko, stats32["segments"],
+                          PEAK_F32))
+    f32_row = row
     emit(phase, **row)
     assert row["max_abs_err"] <= 1e-4 and drop_eq, row
+    assert row.get("before_equal", True), row
     ko = tk.render_tiles(spec16, pw, *args, **kw)
     po = tk.render_tiles_plain(spec16, pw, *args, **kw, stats=stats)
     torch.cuda.synchronize()
@@ -512,40 +627,29 @@ def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
     row["ms"] = cuda_ms(lambda: tk.render_tiles(spec16, pw, *args, **kw), 5)
     row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
         spec16, pw, *args, **kw), 1)
-    # the reference's operations per executed sample: the field MLP; in
-    # the bending modes one squared distance per window row (8 flops),
-    # then num_seek min passes over the window (tile_kernel.py:406-420).
-    # The static march reads no candidates.
-    samples = stats["segments"] * tk.T2 * kw["Ks"]
-    op_s = 2.0 * FIELD_MACS[pw.shape[-1]] * samples / PEAK_BF16
-    read = args
-    if kw["deformed"]:
-        op_s += (8.0 + kw["num_seek"]) * kw["Wn"] * samples / PEAK_F32
-    else:
-        read = (args[0], args[2], args[3])   # tile_sc, params, dirs
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in read) + pw.numel() * 4 + ko.numel() * 4
-    row["executed_segments"] = stats["segments"]
-    row["bound_ms"] = max(op_s, nbytes / PEAK_BYTES) * 1e3
-    row["bound_by"] = ("operations" if op_s > nbytes / PEAK_BYTES
-                       else "bytes")
+    row.update(tile_bound(tk, pw, args, kw, ko, stats["segments"],
+                          PEAK_BF16))
     bf16_row = row
     emit(phase, **row)
     assert bf16_row["control_psnr_rgb"] < limit_db, bf16_row
     assert bf16_row["psnr_rgb"] >= limit_db, bf16_row
-    return bf16_row
+    return {"float32": f32_row, "bfloat16": bf16_row}
 
 
 def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
-                  limit_db=TILE_BF16_DB, base_row=None) -> dict:
+                  limit_db=TILE_BF16_DB, base_row=None,
+                  base_row32=None) -> dict:
     """A schedule variant of the tile kernel (the paired pack, or
     ``block_tiles`` tiles per block, or both) on one pass's inputs, f32
     then bf16, one line each: ``torch.equal`` to the default schedule's
     kernel output, and against the variant's own plain version as
     ``tile_check`` holds the default (f32 within 1e-4 with the dropped row
-    equal; bf16 at ``limit_db`` or more). Returns the bf16 row with the
-    variant's ms beside the default's (timed in turns), the plain version's
-    ms and the bound, which is the default schedule's: the same function."""
+    equal; bf16 at ``limit_db`` or more); the f32 line with the variant's
+    and the default's ms, its plain version's ms and ``base_row32``'s bound.
+    Returns the bf16 row with the variant's ms beside the default's (timed
+    in turns), the plain version's ms and the bound, which is the default
+    schedule's (``base_row``): the same function; its f32 row under
+    "f32"."""
     import torch
     vkw = dict(kw, block_tiles=block_tiles)
     row = None
@@ -564,8 +668,22 @@ def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
                    dropped_equal=bool(torch.equal(ko[:, 5], po[:, 5])),
                    executed_segments=stats["segments"])
         if f32:
+            # its ms (beside the baseline's for block_tiles, whose library
+            # the baseline rebuilds) and the default schedule's
+            run_v = (lambda: tk.render_tiles(spec, pw_variant, *args, **vkw))
+            row.update(timed_f32(run_v, 3) if pw_variant is pw
+                       else {"ms": cuda_ms(run_v, 3)})
+            row["default_ms"] = cuda_ms(
+                lambda: tk.render_tiles(spec, pw, *args, **kw), 3)
+            row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
+                spec, pw_variant, *args, **vkw), 1)
+            if base_row32 is not None:
+                row.update(bound_ms=base_row32["bound_ms"],
+                           bound_by=base_row32["bound_by"])
             emit(phase, **row)
             assert row["max_abs_err"] <= 1e-4 and row["dropped_equal"], row
+            assert row.get("before_equal", True), row
+            f32_row = row
         else:
             row["psnr_rgb"] = psnr(ko[:, 0:3].cpu().numpy(),
                                    po[:, 0:3].cpu().numpy())
@@ -589,12 +707,13 @@ def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
                    bound_by=base_row["bound_by"])
     emit(phase, **row)
     assert row["psnr_rgb"] >= limit_db and row["dropped_equal"], row
-    return row
+    return dict(row, f32=f32_row)
 
 
-def tile_split(phase, tk, spec16, pw, args, kw, base_row, resident,
+def tile_split(phase, tk, spec, pw, args, kw, base_row, resident,
                n_sm, **extra) -> dict:
-    """The tile kernel's timed instantiation on one pass's inputs (bf16):
+    """The tile kernel's timed instantiation on one pass's inputs (f32 or
+    bf16, as ``spec``):
     its output ``torch.equal`` to the untimed kernel's, then where a tile's
     cycles go. Per phase (window staging, scan, bend and blend, MLP,
     composite with the early exit): its share of the summed warp cycles
@@ -607,8 +726,8 @@ def tile_split(phase, tk, spec16, pw, args, kw, base_row, resident,
     ns over slots x span)."""
     import torch
     skw = {k: kw[k] for k in ("K", "Ks", "Ksb", "Wn", "num_seek", "cut")}
-    out_t, cyc = tk.render_tiles_timed(spec16, pw, *args, **skw)
-    base = tk.render_tiles(spec16, pw, *args, **kw)
+    out_t, cyc = tk.render_tiles_timed(spec, pw, *args, **skw)
+    base = tk.render_tiles(spec, pw, *args, **kw)
     torch.cuda.synchronize()
     equal = bool(torch.equal(out_t, base))
     active = args[0][:, 2] > 0
@@ -622,14 +741,15 @@ def tile_split(phase, tk, spec16, pw, args, kw, base_row, resident,
     n, slots = int(c.shape[0]), resident * n_sm
     n_last = n % slots or slots
     last_start = float(start.sort().values[n - n_last])
-    ms_u = [cuda_ms(lambda: tk.render_tiles(spec16, pw, *args, **kw), 5)]
-    ms_t = [cuda_ms(lambda: tk.render_tiles_timed(spec16, pw, *args,
+    ms_u = [cuda_ms(lambda: tk.render_tiles(spec, pw, *args, **kw), 5)]
+    ms_t = [cuda_ms(lambda: tk.render_tiles_timed(spec, pw, *args,
                                                   **skw), 5)
             for _ in range(2)]
-    ms_u.append(cuda_ms(lambda: tk.render_tiles(spec16, pw, *args, **kw),
+    ms_u.append(cuda_ms(lambda: tk.render_tiles(spec, pw, *args, **kw),
                         5))
     row = dict(
-        width=pw.shape[-1], mode="cut" if kw["cut"] else "deformed",
+        width=pw.shape[-1], dtype=spec.compute_dtype,
+        mode="cut" if kw["cut"] else "deformed",
         num_seek=kw["num_seek"], equals_untimed=equal, active_tiles=n,
         executed_segments=base_row["executed_segments"],
         share={p: float(ph[i] / ph.sum())
@@ -1351,6 +1471,7 @@ def main_path_4(c, sz=TRAIN) -> dict:
     torch.cuda.synchronize()
     ia_s = time.perf_counter() - t0
     ia_launches = c.read_counts()
+    ia_f32 = c.read_f32_counts()
     kernel.launches = tk.render_tiles.launches
     tk.render_tiles = kernel
     args, kw, ko = calls[0]
@@ -1422,6 +1543,7 @@ def main_path_4(c, sz=TRAIN) -> dict:
     assert nf_launches["field_w128"] > 0, nf_launches
     assert nf_err <= 1e-4, nf_err
     return {"tile_static_w128": ia_launches[key],
+            "tile_static_w128_f32": ia_f32[key],
             "field_w128": gui_launches["field_w128_float32"],
             "train": {k: {"ms_per_step": v["ms_per_step_unprofiled"],
                           "device_idle_share": v["device_idle_share"]}
@@ -1573,9 +1695,9 @@ def main_path_5(c, p4) -> dict:
     assert r.returncode == 0, r.stderr[-4000:]
     proc = json.loads(re.findall(r"kernel launches: (\{.*\})",
                                  r.stdout)[-1])
-    assert proc.get("tile_cut_w128_default", 0) > 0, proc
-    add({f"tile_{k.split('_')[1]}_w128": v for k, v in proc.items()
-         if k.endswith("_w128_default")})
+    assert printed(proc, "tile_cut_w128_default") > 0, proc
+    add({f"tile_{m}_w128": printed(proc, f"tile_{m}_w128_default")
+         for m in ("deformed", "static", "cut")})
 
     # ---- run_sim_viewer in process, a client thread on HTTP
     cfg_v, ns_v = main_viewer.parse(viewer)
@@ -1982,7 +2104,7 @@ def main_path_6(c, p4) -> dict:
     f896 = dr["frame_production"]
     assert f896["hw"] == [896, 800] and f896["max_abs"] < 2e-3, f896
     assert dr["frame_production_paired"]["max_abs"] < 2e-3
-    assert sharded.get("tile_deformed_w64_default", 0) > 0, sharded
+    assert printed(sharded, "tile_deformed_w64_default") > 0, sharded
     return launches
 
 
@@ -2024,14 +2146,23 @@ def main() -> None:
                                         else ""))
 
     def read_counts():
+        """Every kernel's launches since the last reset; a tile entry sums
+        its two dtypes (read_f32_counts splits the f32 ones out)."""
         out = {f"field_w{w}" + ("_bf16" if t == "bfloat16" else ""): k
                for (w, t), k in fk.field_eval.launches.items()}
-        out.update({tile_name(*key): k
-                    for key, k in tk.render_tiles.launches.items()})
+        for (m, wd, sch, _), k in tk.render_tiles.launches.items():
+            name = tile_name(m, wd, sch)
+            out[name] = out.get(name, 0) + k
         out.update({f"fetch_{n}": fn.launches
                     for n, fn in pk.FETCH_FNS.items()})
         out["floor_shell"] = pk.floor_shell.launches
         return out
+
+    def read_f32_counts():
+        """The tile kernel's f32 launches since the last reset, by
+        read_counts' names."""
+        return {tile_name(m, wd, sch): k for (m, wd, sch, t), k
+                in tk.render_tiles.launches.items() if t == "float32"}
 
     def only(**launched):
         """The counts of a run that launched these kernels and no other."""
@@ -2045,6 +2176,7 @@ def main() -> None:
 
     # ---- build: one nvcc per source, all started together
     t0 = time.perf_counter()
+    base_procs = start_baseline(_build)
     rep = _build.build()
     ptxas = {k: ptxas_report(v["log"]) for k, v in rep.items()}
     fetch_smem = _build.library("probes").pienerf_fetch_smem_bytes
@@ -2064,6 +2196,11 @@ def main() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_s={k: v["seconds"] for k, v in rep.items()},
          entries={k: len(v) for k, v in ptxas.items()}, ptxas=ptxas)
+    if base_procs:
+        finish_baseline(base_procs)
+        emit("baseline", source=os.environ[BASELINE_ENV],
+             libraries=sorted(BASELINE_LIBS),
+             seconds=time.perf_counter() - t0)
 
     # ---- the trained field (bench.py adopts the arch from the weights)
     tree, _ = load_native(CKPT)
@@ -2181,7 +2318,8 @@ def main() -> None:
     path3 = types.SimpleNamespace(
         dev=dev, pose=pose, intr=intr, field=field, pw=pw, spec32=spec32,
         consts=consts, state_rest=state_rest, vid=vid, spring=spring,
-        reset_counts=reset_counts, read_counts=read_counts, only=only)
+        reset_counts=reset_counts, read_counts=read_counts,
+        read_f32_counts=read_f32_counts, only=only)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -2207,6 +2345,7 @@ def main() -> None:
             assert int(out["n_active"]) > 0, fi
         torch.cuda.synchronize()
         launches = read_counts()
+        f32_launches = read_f32_counts()
         assert launches == only(**{tile_key: 20}), launches
         reps = []
         fi = 20
@@ -2234,11 +2373,47 @@ def main() -> None:
         emit(f"{phase}_profile", **fp)
         return state0, counters0, launches, dict(
             img0=img0, ms_per_frame=float(np.median(reps)),
-            tile_kernel_ms=fp["tile_kernel_device_ms"])
+            tile_kernel_ms=fp["tile_kernel_device_ms"],
+            f32_launches=f32_launches)
 
     # ---- main path 1
     state0, drops0, frame_launches, frame_info = chained(
         "frame", ist, pw, "tile_deformed_w64")
+    # the same frame in f32, as the README's viewer command runs it (Wd 64,
+    # --max_iter_num 1, --num_seek_IP 3, no -O): the tile kernel's f32
+    # instantiation on the CUDA cores
+    ist32 = ist._replace(spec=spec32)
+    _, _, _, f32frame_info = chained("frame_f32", ist32, pw,
+                                     "tile_deformed_w64", n_prof=2)
+    assert f32frame_info["f32_launches"]["tile_deformed_w64"] == 20
+    if BASELINE_LIBS:
+        def frames_ms(n=20, n_prof=5):
+            """A chained f32 frame from rest: ms a frame over n (host clock
+            to a sync), then the device's busy ms and the tile kernel's
+            device ms a frame over n_prof more under torch.profiler."""
+            st = state_rest
+            st, _ = frame(st, 0, ist32, pw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for fi in range(1, n + 1):
+                st, _ = frame(st, fi, ist32, pw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / n * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for fi in range(n + 1, n + 1 + n_prof):
+                    st, _ = frame(st, fi, ist32, pw)
+                torch.cuda.synchronize()
+            fp = frame_profile(prof, n_prof, ms)
+            return ms, fp["device_busy_ms"], fp["tile_kernel_device_ms"]
+        b_ = [on_baseline(frames_ms)]
+        n_ = [frames_ms(), frames_ms()]
+        b_.append(on_baseline(frames_ms))
+        emit("frame_f32_ab", **{
+            f"{side}{name}": [r[i] for r in reps]
+            for side, reps in (("", n_), ("before_", b_))
+            for i, name in enumerate(("ms_per_frame", "device_busy_ms",
+                                      "tile_kernel_ms"))})
 
     # ---- tile kernel against its plain version at frame 0's state, both
     # widths (the inputs do not depend on the width)
@@ -2249,7 +2424,9 @@ def main() -> None:
     args, kw, _ = interactive.tile_kernel_inputs(
         ist, pack, p_def, o, pose, intr, H, W, act_ids, act_mask, bbmin,
         bbmax)
-    tile_row = tile_check("tile_kernel", tk, (spec32, spec16), pw, args, kw)
+    tile_rows = tile_check("tile_kernel", tk, (spec32, spec16), pw, args,
+                           kw)
+    tile_row = tile_rows["bfloat16"]
     # each window lands by one bulk copy, which takes only 16-byte-aligned
     # addresses: the wrapper refuses candidates off that boundary, before
     # any launch
@@ -2263,8 +2440,9 @@ def main() -> None:
     except ValueError as e:
         if "16-byte" not in str(e):
             raise
-    tile_row_w = tile_check("tile_kernel_w128", tk, (spec32_w, spec16_w),
-                            pw_fill, args, kw, pw_f32=pw_w)
+    tile_rows_w = tile_check("tile_kernel_w128", tk, (spec32_w, spec16_w),
+                             pw_fill, args, kw, pw_f32=pw_w)
+    tile_row_w = tile_rows_w["bfloat16"]
 
     # ---- main path 1, fidelity (bench.py:222-274): f32, tighten off,
     # against the committed JAX oracle and the port's own oracle
@@ -2301,6 +2479,7 @@ def main() -> None:
         tile_chunk=8)
     torch.cuda.synchronize()
     fid_launches = read_counts()
+    fid_f32 = read_f32_counts()
     p256 = psnr(interactive.tiles_to_image(out_fr["tiles_image"], r, r),
                 interactive.tiles_to_image(out_x["tiles_image"], r, r))
     diff = np.abs(img_f - oracle).max(axis=-1)
@@ -2348,6 +2527,7 @@ def main() -> None:
     torch.cuda.synchronize()
     exact_w_s = time.perf_counter() - t0
     wfid_launches = read_counts()
+    wfid_f32 = read_f32_counts()
     p256w = psnr(interactive.tiles_to_image(out_frw["tiles_image"], r, r),
                  interactive.tiles_to_image(out_xw["tiles_image"], r, r))
     emit("wide_fidelity", psnr_256_fused_vs_port_exact=p256w, limit_db=55.0,
@@ -2611,16 +2791,17 @@ def main() -> None:
     args_b, kw_b, _ = interactive.tile_kernel_inputs(
         ist_c, pack, p_def, o_c, pose, intr_c, Hc, Wc, bend_c[0], bend_c[1],
         bbmin_c, bbmax_c, deformed=True, cut=True, cut_bounds=cb)
-    rows_c = {}
+    rows_c, rows_c32 = {}, {}
     for suffix, specs, weights, w32 in (
             ("", (spec32, spec16), pw, None),
             ("_w128", (spec32_w, spec16_w), pw_fill, pw_w)):
-        rows_c["static" + suffix] = tile_check(
-            "tile_kernel_static" + suffix, tk, specs, weights, args_s, kw_s,
-            limit_db=TILE_BF16_DB_STATIC, pw_f32=w32)
-        rows_c["cut" + suffix] = tile_check(
-            "tile_kernel_cut" + suffix, tk, specs, weights, args_b, kw_b,
-            pw_f32=w32)
+        for mode, a_, k_, lim in (("static", args_s, kw_s,
+                                   TILE_BF16_DB_STATIC),
+                                  ("cut", args_b, kw_b, TILE_BF16_DB)):
+            r_ = tile_check(f"tile_kernel_{mode}{suffix}", tk, specs,
+                            weights, a_, k_, limit_db=lim, pw_f32=w32)
+            rows_c[mode + suffix] = r_["bfloat16"]
+            rows_c32[mode + suffix] = r_["float32"]
 
     # ---- where the tile kernel's cycles go: the timed instantiation on
     # the bench inputs (deformed, both widths) and the cut pass's, with
@@ -2630,12 +2811,18 @@ def main() -> None:
     for mode, wd, weights, spec, a_, k_, base in (
             ("deformed", 64, pw, spec16, args, kw, tile_row),
             ("deformed", 128, pw_fill, spec16_w, args, kw, tile_row_w),
-            ("cut", 64, pw, spec16, args_b, kw_b, rows_c["cut"])):
-        inst = dict(kernel="tile", mode=mode, wd=wd, bf16=True,
-                    paired=False, block=False)
+            ("cut", 64, pw, spec16, args_b, kw_b, rows_c["cut"]),
+            # the f32 MLP's share of the same tiles
+            ("deformed", 64, pw, spec32, args, kw, tile_rows["float32"]),
+            ("deformed", 128, pw_fill, spec32_w, args, kw,
+             tile_rows_w["float32"]),
+            ("cut", 64, pw, spec32, args_b, kw_b, rows_c32["cut"])):
+        inst = dict(kernel="tile", mode=mode, wd=wd,
+                    bf16=spec.compute_dtype == "bfloat16", paired=False,
+                    block=False)
         res_t = occupancy(_build, dict(inst, timed=True))[0]
         res_u = occupancy(_build, dict(inst, timed=False))[0]
-        split_rows[mode, wd] = tile_split(
+        split_rows[mode, wd, spec.compute_dtype] = tile_split(
             "tile_split", tk, spec, weights, a_, k_, base, res_t, n_sm,
             untimed_resident_blocks=res_u)
 
@@ -2664,6 +2851,7 @@ def main() -> None:
     torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t0
     cfid_launches = read_counts()
+    cfid_f32 = read_f32_counts()
     img_f = interactive.tiles_to_image(out_f["tiles_image"], Hf, Wf)
     img_x = interactive.tiles_to_image(out_x["tiles_image"], Hf, Wf)
     pcut = psnr(img_f, img_x)
@@ -2697,14 +2885,14 @@ def main() -> None:
     rows_p = {
         "deformed": variant_check(
             "tile_kernel_paired", tk, (spec32, spec16), pw, pw_p, args, kw,
-            base_row=tile_row),
+            base_row=tile_row, base_row32=tile_rows["float32"]),
         "static": variant_check(
             "tile_kernel_paired_static", tk, (spec32, spec16), pw, pw_p,
             args_s, kw_s, limit_db=TILE_BF16_DB_STATIC,
-            base_row=rows_c["static"]),
+            base_row=rows_c["static"], base_row32=rows_c32["static"]),
         "cut": variant_check(
             "tile_kernel_paired_cut", tk, (spec32, spec16), pw, pw_p, args_b,
-            kw_b, base_row=rows_c["cut"])}
+            kw_b, base_row=rows_c["cut"], base_row32=rows_c32["cut"])}
 
     # ---- block_tiles: B = 4, and the first odd B that does not divide the
     # slot count (the bench's 1,248 slots take 5, the cut pass's 3),
@@ -2715,7 +2903,7 @@ def main() -> None:
     for B in (4, odd_b(args[0].shape[0])):
         rows_b[64, B] = variant_check(
             "tile_kernel_block", tk, (spec32, spec16), pw, pw, args, kw,
-            block_tiles=B, base_row=tile_row)
+            block_tiles=B, base_row=tile_row, base_row32=tile_rows["float32"])
     for B in (4, odd_b(args_b[0].shape[0])):
         # on the embedded checkpoint, where tile_check holds the wide f32
         # rule (a filled pack can flip a ray's T_thresh test against the
@@ -3022,13 +3210,29 @@ def main() -> None:
              tail=res.stdout.strip().splitlines()[-3:])
         assert res.returncode == 0, res.stderr[-4000:]
         assert pngs == [f"frame_{i:04d}.png" for i in range(3)], pngs
+        return json.loads(re.findall(r"kernel launches: (\{.*\})",
+                                     res.stdout)[-1])
 
-    main_gui("main_gui", fused_flags)
-    main_gui("main_gui_cut", fused_flags + [
-        "--cut", "--cut_bounds", "0.0", "0.5", "-0.5", "0.5", "-0.5", "0.5"])
+    # its default dtype is f32 (no -O): the tile kernel's f32 launches
+    cut_flags = ["--cut", "--cut_bounds", "0.0", "0.5", "-0.5", "0.5",
+                 "-0.5", "0.5"]
+    gui_launches = {
+        "main_gui": main_gui("main_gui", fused_flags),
+        "main_gui_cut": main_gui("main_gui_cut", fused_flags + cut_flags)}
     main_gui("main_gui_newton", [])
-    main_gui("main_gui_w128", fused_flags,
-             workspace=os.path.relpath(wide_ws, ROOT))
+    for phase, extra in (("main_gui_w128", fused_flags),
+                         ("main_gui_w128_cut", fused_flags + cut_flags)):
+        gui_launches[phase] = main_gui(
+            phase, extra, workspace=os.path.relpath(wide_ws, ROOT))
+    gui_f32 = {}
+    for got in gui_launches.values():
+        for k_, v in got.items():
+            if k_.startswith("tile_") and k_.endswith("_default_float32"):
+                name = k_[:-len("_default_float32")]
+                gui_f32[name] = gui_f32.get(name, 0) + v
+    emit("main_gui_f32_launches", launches=gui_f32)
+    assert all(gui_f32.get(f"tile_{m}_w{wd}", 0) > 0 for m in
+               ("deformed", "static", "cut") for wd in (64, 128)), gui_f32
 
     # ---- main_sim as a user runs it, on a written PLY (the cube of the
     # verify recipe: pinned on one side, sagging under gravity)
@@ -3064,7 +3268,8 @@ def main() -> None:
 
     # ---- main path 4: train -> distill -> serve
     path4 = types.SimpleNamespace(dev=dev, tk=tk, reset_counts=reset_counts,
-                                  read_counts=read_counts, only=only)
+                                  read_counts=read_counts,
+                                  read_f32_counts=read_f32_counts, only=only)
     train_launches = main_path_4(path4)
 
     # ---- main path 5: the point cloud and the live viewer
@@ -3113,15 +3318,26 @@ def main() -> None:
         """This slice's launches of a row (``asset_chain_launches``: the
         hash-grid chain; ``sharded_path_launches``: rank 0 of the sharded
         dryrun), beside the row's own main-path count; a key ending in
-        "*" sums the keys it begins."""
+        "*" sums the paired keys it begins."""
         out = {}
         for name, (phase, key) in fields.items():
             got = last_launches[phase]
             n = (sum(v for k_, v in got.items() if k_.startswith(key[:-1])
-                     and k_.endswith("_paired"))
-                 if key.endswith("*") else got.get(key, 0))
+                     and "_paired" in k_)
+                 if key.endswith("*") else printed(got, key))
             assert n > 0, (name, key, got)
             out[name] = n
+        return out
+
+    def f32_tile(r32, **by_path):
+        """A tile row's f32 reading (the row itself is the bf16 one): ms,
+        the baseline's ms when one was built, plain ms, bound and error on
+        the same inputs, and its f32 launches by main path."""
+        out = {f"f32_{k}": r32[k] for k in (
+            "ms", "before_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "executed_segments") if k in r32}
+        out.update(f32_launches=sum(by_path.values()),
+                   f32_launches_by_path=by_path)
         return out
 
     fsrc = ("pienerf_tpu_torch/csrc/field_kernel.cu",
@@ -3139,36 +3355,57 @@ def main() -> None:
             tile_row, **p6(
                 asset_chain_launches=("asset_chain", "tile_deformed_w64"),
                 sharded_path_launches=("sharded",
-                                       "tile_deformed_w64_default"))),
+                                       "tile_deformed_w64_default")),
+            **f32_tile(tile_rows["float32"], frame_f32=f32frame_info[
+                "f32_launches"]["tile_deformed_w64"],
+                fidelity=fid_f32["tile_deformed_w64"],
+                main_gui=gui_f32["tile_deformed_w64"])),
         row("tile_kernel_static", *tsrc, cut_launches["tile_static_w64"],
             rows_c["static"], **p5("tile_static_w64"),
-            **p6(asset_chain_launches=("asset_chain", "tile_static_w64"))),
+            **p6(asset_chain_launches=("asset_chain", "tile_static_w64")),
+            **f32_tile(rows_c32["static"],
+                       main_gui=gui_f32["tile_static_w64"])),
         row("tile_kernel_cut", *tsrc, cut_launches["tile_cut_w64"],
-            rows_c["cut"]),
+            rows_c["cut"], **f32_tile(
+                rows_c32["cut"], fidelity=cfid_f32["tile_cut_w64"],
+                main_gui=gui_f32["tile_cut_w64"])),
         row("field_kernel_w128", *fsrc, wfid_launches["field_w128"],
             field_rows[128]["float32"], **bf16_field(128),
             train_path_launches=train_launches["field_w128"]),
         row("tile_kernel_w128", *tsrc, wframe_launches["tile_deformed_w128"],
-            tile_row_w, **p5("tile_deformed_w128")),
+            tile_row_w, **p5("tile_deformed_w128"),
+            **f32_tile(tile_rows_w["float32"],
+                       fidelity=wfid_f32["tile_deformed_w128"],
+                       main_gui=gui_f32["tile_deformed_w128"])),
         row("tile_kernel_static_w128", *tsrc,
             wcut_launches["tile_static_w128"], rows_c["static_w128"],
             train_path_launches=train_launches["tile_static_w128"],
-            **p5("tile_static_w128")),
+            **p5("tile_static_w128"), **f32_tile(
+                rows_c32["static_w128"],
+                train=train_launches["tile_static_w128_f32"],
+                main_gui=gui_f32["tile_static_w128"])),
         row("tile_kernel_cut_w128", *tsrc, wcut_launches["tile_cut_w128"],
-            rows_c["cut_w128"], **p5("tile_cut_w128")),
+            rows_c["cut_w128"], **p5("tile_cut_w128"),
+            **f32_tile(rows_c32["cut_w128"],
+                       main_gui=gui_f32["tile_cut_w128"])),
         # the schedules: the paired deformed mode and block_tiles on their
         # bench frames; the paired static and cut modes on a cut frame run
-        # below with the paired pack
+        # below with the paired pack; their f32 readings on the checks'
+        # inputs (no main path runs them in f32)
         row("tile_kernel_paired", *tpsrc,
             pframe_launches["tile_deformed_paired"], rows_p["deformed"],
-            **p6(sharded_path_launches=("sharded", "tile_deformed_*"))),
+            **p6(sharded_path_launches=("sharded", "tile_deformed_*")),
+            **f32_tile(rows_p["deformed"]["f32"])),
         row("tile_kernel_paired_static", *tpsrc,
-            pcut_launches["tile_static_paired"], rows_p["static"]),
+            pcut_launches["tile_static_paired"], rows_p["static"],
+            **f32_tile(rows_p["static"]["f32"])),
         row("tile_kernel_paired_cut", *tpsrc,
-            pcut_launches["tile_cut_paired"], rows_p["cut"]),
+            pcut_launches["tile_cut_paired"], rows_p["cut"],
+            **f32_tile(rows_p["cut"]["f32"])),
         row("tile_kernel_block",
             "pienerf_tpu_torch/csrc/tile_kernel_block.cu", tsrc[1],
-            bframe_launches["tile_deformed_w64_block"], rows_b[64, 4]),
+            bframe_launches["tile_deformed_w64_block"], rows_b[64, 4],
+            **f32_tile(rows_b[64, 4]["f32"])),
     ] + [
         row(f"{n}_fetch", psrc,
             f"tools/pallas_gather_probe.py:{probe_lines[n]}",

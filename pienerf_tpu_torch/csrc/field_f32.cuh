@@ -1,34 +1,40 @@
-// The field kernel's f32 MLP, register-blocked for the CUDA cores: a block
-// of 512 threads evaluates P points a pass (Net64: 512, Net128: 256), one
-// layer at a time, each layer as a small SGEMM micro-kernel.
+// The f32 field MLP of both kernels, register-blocked for the CUDA cores:
+// a block of THREADS threads evaluates P points a pass, one layer at a
+// time, each layer as a small SGEMM micro-kernel. The field kernel runs
+// 512 threads on 512 (Net64) or 256 (Net128) points a pass; the tile
+// kernel its 256 threads on one sample of each of its 256 rays.
 //
-// Why: the per-point chains of field_mlp.cuh (field_point,
-// field_points_wide) load a float4 of weights from shared memory for every
-// 4 FMAs, and an activation for every input row besides: the shared-memory
-// load pipe, not the FMA pipe, sets their pace (38% of the f32 bound at
-// Wd 64 on an H100, 34% at Wd 128). Here a thread owns a tile of TP points
-// x 4 TO4 outputs of a layer (64 accumulators on the hidden layers: 4 x 16
-// at Wd 64, 8 x 8 at Wd 128), and the block's activations live in shared
-// memory as [feature][point], so one input row costs the thread TP / 4
-// activation loads and TO4 float4 weight loads for 4 TP TO4 FMAs: 4 or 5
-// loads for 64 FMAs. The activations sit in one [WD][P] buffer that each
-// layer overwrites in place once every thread has read its input (one more
-// barrier a layer): half the shared memory of two buffers, so twice the
-// points a pass and 16 warps an SM instead of 8 in the same 206 KB (Wd 64)
-// or 197 KB (Wd 128), which hides the loads' latency better.
+// Why: per-point FMA chains (one thread a point, the weights broadcast,
+// the activations in a column a thread; the port's first f32 MLP) load a
+// float4 of weights from shared memory for every 4 FMAs, and an activation
+// for every input row besides: the shared-memory load pipe, not the FMA
+// pipe, sets their pace (38% of the f32 bound at Wd 64 on an H100, 34% at
+// Wd 128). Here a thread owns a tile of TP points x 4 TO4 outputs of a
+// layer (on the hidden layers 4 x 16 at Wd 64; at Wd 128 8 x 8 in the
+// field kernel, 8 x 16 in the tile kernel), and the block's activations
+// live in shared memory as [feature][point], so one input row costs the
+// thread TP / 4 activation loads and TO4 float4 weight loads for 4 TP TO4
+// FMAs: 4 to 6 loads for 64 or 128 FMAs. The activations sit in one
+// [WD][P] buffer that each layer overwrites in place once every thread
+// has read its input (one more barrier a layer): half the shared memory of
+// two buffers, so twice the points a pass and, in the field kernel, 16
+// warps an SM instead of 8 in the same 206 KB (Wd 64) or 197 KB (Wd 128),
+// which hides the loads' latency better.
 //   Bank layout: within a warp, 32 / NOG point groups read one contiguous
 //   run of a row (one wavefront); output group og reads the float4 at
 //   column 4 (og + j NOG), so a warp's NOG groups read NOG distinct,
 //   adjacent float4s (one wavefront at NOG 4 or 8, two at 16) and the rest
 //   is broadcast.
 //
-// Semantics are field_mlp.cuh's f32 path exactly: every output's sum is one
-// __fmaf_rn chain over the inputs in increasing order starting from 0.f
-// (register blocking changes which thread runs a chain, not its order), the
-// encoding and SH(d) are encode_to<false> and sh4<false>, ReLU between
-// layers, the trunc-exp and the sigmoid as field_point writes them. So the
-// outputs equal field_point's and field_points_wide's bit for bit (and the
-// 64-wide net embedded in the 128-wide one renders the same bits).
+// Semantics are field_mlp.cuh's f32 chains exactly: every output's sum is
+// one __fmaf_rn chain over the inputs in increasing order starting from
+// 0.f (register blocking changes which thread runs a chain, not its
+// order), the encoding and SH(d) are encode_to<false> and sh4<false>, ReLU
+// between layers, sigma = expf(clamp(h0, -15, 15)) and rgb = 1 / (1 +
+// expf(-c)). So the outputs equal those of one point a thread through
+// field_mlp.cuh's `hidden` / `last` bit for bit (the paired schedule's
+// chains; the CPU emulation keeps the per-point path these replaced), and
+// the 64-wide net embedded in the 128-wide one renders the same bits.
 //
 // Weights: Net64's compact weights (75 KB) stay resident for the block's
 // lifetime (F32Resident). Net128's (255 KB) do not fit in a block's 227 KB:
@@ -214,14 +220,17 @@ __device__ __forceinline__ void zero(float (&acc)[TP][NA]) {
   }
 }
 
-// hidden layer L: ReLU(w^T h) over the [WD][P] buffer h, in place
-template <class N, int L, int P, class W>
+// hidden layer L: ReLU(w^T h) over the [WD][P] buffer h, in place, by
+// THREADS threads
+template <class N, int L, int P, int THREADS = kF32Threads, class W>
 __device__ __forceinline__ void f32_hidden(W& w, float* __restrict__ h) {
-  // 64 accumulators a thread: 4 points x 16 outputs (Wd 64), 8 x 8 (Wd
-  // 128), the faster shape at each width on an H100
-  constexpr int TP = N::kWd == 64 ? 4 : 8, TO4 = 16 / TP;
+  // WD P / THREADS accumulators a thread: 4 points x 16 outputs (Wd 64),
+  // 8 x 8 (Wd 128 in the field kernel: the faster shape at each width on
+  // an H100) or 8 x 16 (Wd 128 at 256 threads a pass of 256)
+  constexpr int TP = N::kWd == 64 ? 4 : 8;
+  constexpr int TO4 = N::kWd * P / THREADS / (4 * TP);
   using T = F32Tile<N::kWd, TP, TO4, P>;
-  static_assert(T::kThreads == kF32Threads, "every thread a tile");
+  static_assert(T::kThreads == THREADS, "every thread a tile");
   const int og = threadIdx.x % T::kNog, pg = threadIdx.x / T::kNog;
   float acc[TP][4 * TO4];
   zero(acc);
@@ -242,16 +251,15 @@ __device__ __forceinline__ void f32_hidden(W& w, float* __restrict__ h) {
   }
 }
 
-// The sigma head (layer 3, 16 outputs) from buffer h: sigma of the live
-// points to out row 0, geo 0..14 into rows 16..30 of h (color layer 0's
-// input after SH(d), which the caller puts in rows 0..15).
-template <class N, int P, class W>
+// The sigma head (layer 3, 16 outputs) from buffer h: put_sigma(p, sigma)
+// for every point p of the pass, geo 0..14 into rows 16..30 of h (color
+// layer 0's input after SH(d), which the caller puts in rows 0..15).
+template <class N, int P, int THREADS = kF32Threads, class W, class Put>
 __device__ __forceinline__ void f32_head(W& w, float* __restrict__ h,
-                                         float* __restrict__ out, int n,
-                                         int base) {
-  constexpr int TP = P / 128, TO4 = 1;
+                                         Put put_sigma) {
+  constexpr int TP = 4 * P / THREADS, TO4 = 1;
   using T = F32Tile<16, TP, TO4, P>;
-  static_assert(T::kThreads == kF32Threads, "every thread a tile");
+  static_assert(T::kThreads == THREADS, "every thread a tile");
   const int og = threadIdx.x % T::kNog, pg = threadIdx.x / T::kNog;
   float acc[TP][4];
   zero(acc);
@@ -263,9 +271,7 @@ __device__ __forceinline__ void f32_head(W& w, float* __restrict__ h,
     for (int c = 0; c < 4; ++c) {
       const int col = T::col(og, 0, c);
       if (col == 0) {
-        if (base + p < n) {
-          out[base + p] = expf(fminf(fmaxf(acc[q][c], -15.f), 15.f));
-        }
+        put_sigma(p, expf(fminf(fmaxf(acc[q][c], -15.f), 15.f)));
       } else {
         h[(15 + col) * P + p] = acc[q][c];
       }
@@ -273,21 +279,18 @@ __device__ __forceinline__ void f32_head(W& w, float* __restrict__ h,
   }
 }
 
-// The last color layer (3 outputs, padded to 4) from buffer h: rgb of the
-// live points to out rows 1..3, one thread a point.
-template <class N, int P, class W>
+// The last color layer (3 outputs, padded to 4) from buffer h: thread p <
+// P computes point p's rgb and calls put_rgb(r, g, b).
+template <class N, int P, class W, class Put>
 __device__ __forceinline__ void f32_rgb(W& w, const float* __restrict__ h,
-                                        float* __restrict__ out, int n,
-                                        int base) {
+                                        Put put_rgb) {
   using T = F32Tile<4, 1, 1, P>;
   float acc[1][4];
   zero(acc);
   w.template layer<6, 1, 1, P>(h, 0, threadIdx.x, acc);
-  const int i = base + (int)threadIdx.x;
-  if (threadIdx.x < T::kThreads && i < n) {
-    out[n + i] = 1.f / (1.f + expf(-acc[0][0]));
-    out[2 * n + i] = 1.f / (1.f + expf(-acc[0][1]));
-    out[3 * n + i] = 1.f / (1.f + expf(-acc[0][2]));
+  if (threadIdx.x < T::kThreads) {
+    put_rgb(1.f / (1.f + expf(-acc[0][0])), 1.f / (1.f + expf(-acc[0][1])),
+            1.f / (1.f + expf(-acc[0][2])));
   }
 }
 
@@ -317,7 +320,9 @@ __device__ __forceinline__ void f32_pass(W& w, float* __restrict__ A,
   f32_hidden<N, 0, P>(w, A);
   f32_hidden<N, 1, P>(w, A);
   f32_hidden<N, 2, P>(w, A);
-  f32_head<N, P>(w, A, out, n, base);
+  f32_head<N, P>(w, A, [&](int q, float sigma) {
+    if (base + q < n) out[base + q] = sigma;
+  });
   if (own) {
     float d0 = 0.f, d1 = 0.f, d2 = 1.f;
     if (live) {
@@ -332,7 +337,13 @@ __device__ __forceinline__ void f32_pass(W& w, float* __restrict__ A,
   }
   f32_hidden<N, 4, P>(w, A);
   f32_hidden<N, 5, P>(w, A);
-  f32_rgb<N, P>(w, A, out, n, base);
+  f32_rgb<N, P>(w, A, [&](float r, float g, float b) {
+    if (live) {
+      out[n + i] = r;
+      out[2 * n + i] = g;
+      out[3 * n + i] = b;
+    }
+  });
 }
 
 }  // namespace pienerf

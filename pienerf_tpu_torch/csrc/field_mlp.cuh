@@ -17,33 +17,17 @@
 // weights add exact zeros. (The encoding and SH(d) below, shared with the
 // bf16 path, round to the compute dtype.)
 //
-// Two ways to run the same layer code, by width:
-//   Net64, `field_point`: one thread evaluates one point. The live
-//     [in, out] extents of the [7, 64, 64] pack (75 KB as f32) are staged
-//     once per block in dynamic shared
-//     memory. Every thread of a warp reads the same weight address at the
-//     same time, so the loads broadcast; they are float4 wide so one load
-//     feeds four FMAs. Each thread's layer activations sit in two
-//     shared-memory columns beside them (see `accumulate`).
-//   Net128, `field_points_wide`: the compact weights (255 KB) exceed a
-//     block's 227 KB, and two 128-wide columns per thread at 256 threads
-//     would take 256 KB. So the block's 256 threads evaluate 128 points at
-//     a time, two threads per point, each computing half of every layer's
-//     outputs with the same `accumulate`; the weights are staged one layer
-//     at a time (at most 64 KB); the 128 points' activations live in two
-//     [128 features][128 points] buffers (128 KB).
-//
-// The paired schedule of the tile kernel (Net64 only) stages the same
-// compact weights from the block-diagonal pack (stage_weights_paired) and
-// runs a sigma layer beside a color layer per pass over the inputs
-// (paired_layer).
-//
-// All of the above is the tile kernel's f32 path, on the CUDA cores; the
-// field kernel's f32 path runs the same chains register-blocked over a
-// block of points (field_f32.cuh), bit for bit. The bf16
-// instantiations of both kernels run the same net on the tensor cores
-// instead, one warp's 32 samples at a time (mma_mlp.cuh, included at the
-// end of this file).
+// One thread runs one point's chains (`accumulate`, `hidden`, `last`,
+// `paired_layer`): the point's activations in a shared-memory column, the
+// weights staged in shared memory and read as broadcast float4s. The
+// tile kernel's paired schedule (Net64 only) stages the compact weights
+// from the block-diagonal pack (stage_weights_paired) and runs a sigma
+// layer beside a color layer per pass over the inputs (paired_layer).
+// Every other f32 path of both kernels runs the same chains
+// register-blocked over a block of points (field_f32.cuh), bit for bit.
+// The bf16 instantiations of both kernels run the same net on the tensor
+// cores instead, one warp's 32 samples at a time (mma_mlp.cuh, included at
+// the end of this file).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -101,8 +85,6 @@ struct Net {
 };
 using Net64 = Net<64, 8>;
 using Net128 = Net<128, 10>;
-
-constexpr int kWidePoints = 128;        // points per Net128 pass
 
 template <bool BF16>
 __device__ __forceinline__ float rnd(float v) {
@@ -335,20 +317,6 @@ __device__ __forceinline__ void encode(float x0, float x1, float x2,
                       [&](int i, float v) { enc[i * stride] = v; });
 }
 
-// Shared memory a block needs for the MLP. Net64: all weights plus two
-// 64-wide activation columns per thread. Net128: one layer's weights plus
-// the two [128][128] activation buffers.
-template <class N>
-__host__ __device__ constexpr size_t mlp_smem_floats(int threads) {
-  return N::kWd == 64
-             ? (size_t)N::wfloats() + 2 * (size_t)N::kWd * threads
-             : (size_t)N::kWd * N::kWd + 2 * (size_t)N::kWd * kWidePoints;
-}
-template <class N>
-__host__ __device__ constexpr size_t mlp_smem_bytes(int threads) {
-  return mlp_smem_floats<N>(threads) * sizeof(float);
-}
-
 // The bf16 tensor-core path (mma_mlp.cuh): every layer's bf16 weights in
 // fragment order, and one staging tile per warp, 32 rows (one a lane) of
 // kTileWords 32-bit words: the encoding in words [0, 32), SH(d) in
@@ -362,105 +330,6 @@ constexpr size_t kWarpTileBytes = 32 * kTileWords * 4;
 template <class N>
 __host__ __device__ constexpr size_t mma_smem_bytes(int threads) {
   return N::frag_bytes() + (size_t)(threads / 32) * kWarpTileBytes;
-}
-
-// Field at one point with Net64: sigma (f32, before density scale) and
-// rgb. `sh` holds the point's direction encoding from sh4<false>; `sw` the
-// staged weights; `buf` is the block's activation area (2 * 64 *
-// blockDim.x floats).
-__device__ __forceinline__ void field_point(const float* __restrict__ sw,
-                                            float* __restrict__ buf,
-                                            float x0, float x1, float x2,
-                                            float bound, const float (&sh)[16],
-                                            float& sigma, float& r, float& g,
-                                            float& b) {
-  using N = Net64;
-  constexpr int WD = N::kWd;
-  const int stride = blockDim.x;
-  float* A = buf + threadIdx.x;
-  float* B = buf + WD * stride + threadIdx.x;
-  encode<false, N::kNf>(x0, x1, x2, bound, A, stride);
-  hidden<N::kEnc, WD>(sw + N::off(0), A, B, stride);
-  hidden<WD, WD>(sw + N::off(1), B, A, stride);
-  hidden<WD, WD>(sw + N::off(2), A, B, stride);
-  float h4[16];
-  last<WD, 16, 16>(sw + N::off(3), B, stride, h4);
-  sigma = expf(fminf(fmaxf(h4[0], -15.f), 15.f));
-
-#pragma unroll
-  for (int i = 0; i < 16; ++i) A[i * stride] = sh[i];
-#pragma unroll
-  for (int i = 0; i < 15; ++i) A[(16 + i) * stride] = h4[1 + i];
-  hidden<31, WD>(sw + N::off(4), A, B, stride);
-  hidden<WD, WD>(sw + N::off(5), B, A, stride);
-  float c3[3];
-  last<WD, 4, 3>(sw + N::off(6), A, stride, c3);
-  r = 1.f / (1.f + expf(-c3[0]));
-  g = 1.f / (1.f + expf(-c3[1]));
-  b = 1.f / (1.f + expf(-c3[2]));
-}
-
-// One layer of the wide pass: stage layer L's weights, then thread
-// (point p, half g) computes outputs [g * OUTP/2, (g + 1) * OUTP/2) of its
-// point from column h into column out (stride kWidePoints). Both
-// __syncthreads are block-wide: every thread of the block must call it.
-template <class N, int L, bool RELU>
-__device__ __forceinline__ void wide_layer(float* __restrict__ sw,
-                                           const float* __restrict__ pw,
-                                           const float* __restrict__ h,
-                                           float* __restrict__ out, int g) {
-  constexpr int IN = N::in(L), OUTP = N::outp(L), NACC = OUTP / 2;
-  stage_layer<N, L>(sw, pw);
-  __syncthreads();                     // weights and the layer input ready
-  const int o0 = g * NACC;
-  float acc[NACC];
-  accumulate<IN, NACC, OUTP>(sw + o0, h, kWidePoints, acc);
-#pragma unroll
-  for (int j = 0; j < NACC; ++j) {
-    out[(o0 + j) * kWidePoints] = RELU ? fmaxf(acc[j], 0.f) : acc[j];
-  }
-  __syncthreads();                     // outputs written; sw free again
-}
-
-// The wide net (Net128) for kWidePoints points, by all 256 threads of the
-// block: thread t works on point p = t & 127 and output half g = t >> 7.
-// For each point exactly one thread is its `owner`: it supplies x and sh
-// and receives sigma and rgb (other threads' arguments are ignored and
-// their outputs untouched). A and B are the two [128][128] activation
-// buffers, sw room for one layer. Block-wide: every thread must call it.
-template <class N>
-__device__ __forceinline__ void field_points_wide(
-    float* __restrict__ sw, float* __restrict__ A, float* __restrict__ B,
-    const float* __restrict__ pw, bool owner, float x0, float x1, float x2,
-    float bound, const float (&sh)[16], float& sigma, float& r, float& g,
-    float& b) {
-  static_assert(N::kWd == 2 * 64, "two threads of 64 outputs per point");
-  constexpr int S = kWidePoints;
-  const int p = threadIdx.x & (S - 1);
-  const int half = threadIdx.x / S;
-  float* a = A + p;
-  float* bb = B + p;
-  __syncthreads();                     // earlier readers of A, B are done
-  if (owner) encode<false, N::kNf>(x0, x1, x2, bound, a, S);
-  wide_layer<N, 0, true>(sw, pw, a, bb, half);
-  wide_layer<N, 1, true>(sw, pw, bb, a, half);
-  wide_layer<N, 2, true>(sw, pw, a, bb, half);
-  wide_layer<N, 3, false>(sw, pw, bb, a, half);     // 16 rows in A
-  if (owner) {
-    sigma = expf(fminf(fmaxf(a[0], -15.f), 15.f));
-#pragma unroll
-    for (int i = 0; i < 16; ++i) bb[i * S] = sh[i];
-#pragma unroll
-    for (int i = 0; i < 15; ++i) bb[(16 + i) * S] = a[(1 + i) * S];
-  }
-  wide_layer<N, 4, true>(sw, pw, bb, a, half);
-  wide_layer<N, 5, true>(sw, pw, a, bb, half);
-  wide_layer<N, 6, false>(sw, pw, bb, a, half);     // 4 rows in A
-  if (owner) {
-    r = 1.f / (1.f + expf(-a[0]));
-    g = 1.f / (1.f + expf(-a[S]));
-    b = 1.f / (1.f + expf(-a[2 * S]));
-  }
 }
 
 }  // namespace pienerf

@@ -1,7 +1,7 @@
 // The fused tile kernel's default-schedule instantiations: both widths,
 // f32 and bf16, the three frame modes, one tile per thread block
-// (tile_kernel.cuh has the kernel and its notes); and the timed ones that
-// split a tile's cycles by phase: bf16, the two bending modes, both widths.
+// (tile_kernel.cuh has the kernel and its notes; the timed ones are
+// tile_kernel_timed.cu's).
 
 #include "tile_kernel.cuh"
 
@@ -34,18 +34,6 @@ constexpr OccupancyFn kOccupancy[2][2][3] = {
      {occupancy<true, true, false, false, false, Net128>,
       occupancy<true, false, false, false, false, Net128>,
       occupancy<true, true, true, false, false, Net128>}}};
-// [wide][cut]
-constexpr LaunchFn kLaunchTimed[2][2] = {
-    {launch<true, true, false, false, false, Net64, true>,
-     launch<true, true, true, false, false, Net64, true>},
-    {launch<true, true, false, false, false, Net128, true>,
-     launch<true, true, true, false, false, Net128, true>}};
-constexpr OccupancyFn kOccupancyTimed[2][2] = {
-    {occupancy<true, true, false, false, false, Net64, true>,
-     occupancy<true, true, true, false, false, Net64, true>},
-    {occupancy<true, true, false, false, false, Net128, true>,
-     occupancy<true, true, true, false, false, Net128, true>}};
-
 }  // namespace pienerf
 
 // `cut` applies only with `deformed`, as in the Pallas kernel: deformed=0
@@ -71,27 +59,6 @@ extern "C" int pienerf_render_tiles(const void* tile_sc, const void* bin_start,
   return (int)err;
 }
 
-// The timed kernel: pienerf_render_tiles's arguments, and `cyc` the int64
-// split [A, 8 warps, kSplit] (tile_kernel.cuh, PhaseClock); bf16 and a
-// bending mode only. Its out equals pienerf_render_tiles's bit for bit.
-extern "C" int pienerf_render_tiles_timed(
-    const void* tile_sc, const void* bin_start, const void* params,
-    const void* dirs, const void* cand, const void* pw, void* out, int A,
-    int block_tiles, int BS, int P, int K, int Ks, int Ksb, int Wn,
-    int num_seek, float bound, int bf16, int deformed, int cut, int wd,
-    void* cyc, void* stream) {
-  if ((wd != 64 && wd != 128) || !bf16 || !deformed)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = pienerf::kLaunchTimed[wd == 128][cut ? 1 : 0](
-      static_cast<const float*>(tile_sc), static_cast<const int*>(bin_start),
-      static_cast<const float*>(params), static_cast<const float*>(dirs),
-      static_cast<const float*>(cand), static_cast<const float*>(pw),
-      static_cast<float*>(out), A, block_tiles, BS, P, K, Ks, Ksb, Wn,
-      num_seek, bound, static_cast<long long*>(cyc),
-      static_cast<cudaStream_t>(stream));
-  return (int)err;
-}
-
 // The resident blocks per SM of one instantiation and the dynamic shared
 // memory its launch asks for at window Wn (both written; nothing runs).
 extern "C" int pienerf_render_tiles_occupancy(int bf16, int deformed, int cut,
@@ -100,15 +67,6 @@ extern "C" int pienerf_render_tiles_occupancy(int bf16, int deformed, int cut,
   if (wd != 64 && wd != 128) return (int)cudaErrorInvalidValue;
   const int mode = !deformed ? 1 : (cut ? 2 : 0);
   return (int)pienerf::kOccupancy[wd == 128][bf16 ? 1 : 0][mode](
-      Wn, blocks, smem_bytes);
-}
-
-// The same for a timed instantiation (bf16, deformed or cut).
-extern "C" int pienerf_render_tiles_timed_occupancy(int cut, int wd, int Wn,
-                                                    int* blocks,
-                                                    int* smem_bytes) {
-  if (wd != 64 && wd != 128) return (int)cudaErrorInvalidValue;
-  return (int)pienerf::kOccupancyTimed[wd == 128][cut ? 1 : 0](
       Wn, blocks, smem_bytes);
 }
 

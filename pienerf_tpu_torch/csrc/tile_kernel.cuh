@@ -1,9 +1,10 @@
 // Fused per-tile frame kernel for Hopper (sm_90a): bend -> field ->
 // composite for 16x16 image tiles, one thread per ray. The template is
 // instantiated by tile_kernel.cu (both widths, one tile per block),
-// tile_kernel_block.cu (the same with block_tiles tiles per block) and
-// tile_kernel_paired.cu (the 64-wide net from the paired pack, either):
-// three translation units, so their nvcc runs go side by side.
+// tile_kernel_block.cu (the same with block_tiles tiles per block),
+// tile_kernel_paired.cu (the 64-wide net from the paired pack, either) and
+// tile_kernel_timed.cu (one tile per block, its cycles split by phase):
+// four translation units, so their nvcc runs go side by side.
 //
 // Replaces the Pallas TPU kernel pienerf_tpu/ops/pallas/tile_kernel.py
 // `_make_kernel` (launched by `render_tiles`, :640-742) for both packed
@@ -74,11 +75,16 @@
 // mma_field_paired), every layer's bf16 weights staged once per block; the
 // sample loops are block-uniform, so every lane of a warp reaches the MMAs
 // (mma_field's own __syncwarp reconverges the warp after the per-ray
-// bending). f32: at Wd 64 each thread runs its ray's sample through the
-// MLP alone (field_point, weights staged once per block); at Wd 128 the
-// block runs its 256 samples through the MLP in two passes of 128, two
-// threads per sample and one layer's weights staged at a time
-// (field_points_wide), which every thread reaches. The TPU kernel's
+// bending). f32, default and block_tiles schedules: the block runs one
+// sample of each of its 256 rays through the MLP as one register-blocked
+// pass of 256 points on the CUDA cores (f32_sample: field_f32.cuh's layers,
+// every thread a 4 x 16 tile of each hidden layer at Wd 64, 8 x 16 at Wd
+// 128, the activations [WD][256] in shared memory); Net64's weights stay
+// resident, staged once per block, Net128's (255 KB) stream through two
+// 32 KB cp.async chunks, once a pass. Every output is the chain one thread
+// a point computes, bit for bit. f32 paired: each thread runs its ray's
+// sample through paired_layer alone (one column pair a thread, the weights
+// staged once per block). The TPU kernel's
 // one-hot MXU fetch becomes a plain indexed read from the sub-segment's
 // candidate window in shared memory. The nearest rows are kept on a strict
 // `<` in row order, so ties go to the lowest row as jnp.argmin does and
@@ -93,7 +99,7 @@
 #pragma once
 
 #include "bulk.cuh"
-#include "field_mlp.cuh"
+#include "field_f32.cuh"
 
 namespace pienerf {
 
@@ -117,14 +123,56 @@ __device__ __forceinline__ float sigmoidf(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// the block's MLP shared memory: bf16 on the tensor cores, f32 on the
-// CUDA cores
-template <bool BF16, class N>
+// The block's MLP shared memory. bf16: the fragment-ordered weights and a
+// staging tile a warp. f32 paired (Net64): the compact weights and two
+// 64-wide activation columns a thread. f32 otherwise: Net64's compact
+// weights or Net128's two streamed chunks, the [WD][kT2] activations of
+// f32_sample and its kT2 sigmas.
+template <bool BF16, bool PAIRED, class N>
 __host__ __device__ constexpr size_t mlp_bytes() {
-  return BF16 ? mma_smem_bytes<N>(kT2) : mlp_smem_bytes<N>(kT2);
+  return BF16 ? mma_smem_bytes<N>(kT2)
+         : PAIRED ? ((size_t)N::wfloats() + 2 * (size_t)N::kWd * kT2) * 4
+                  : ((N::kWd == 64 ? (size_t)N::wfloats()
+                                   : 2 * (size_t)kChunkFloats) +
+                     (size_t)(N::kWd + 1) * kT2) * 4;
 }
 
-// The timed instantiations (TIMED, tile_kernel.cu only) add up each
+// f32, default and block_tiles schedules: one sample of each of the
+// block's kT2 rays through the MLP as one register-blocked pass of kT2
+// points (field_f32.cuh's layers at kT2 threads). Thread r encodes its
+// sample (x, bound) into column r of the [WD][kT2] activations A and
+// receives its sigma (by way of sig[r]) and rgb; SH(d) of its direction
+// dv is recomputed here rather than held in registers across the loop.
+// Block-wide: every thread must call it.
+template <class N, class W>
+__device__ __forceinline__ void f32_sample(W& w, float* __restrict__ A,
+                                           float* __restrict__ sig,
+                                           float x0, float x1, float x2,
+                                           float bound, const float* dv,
+                                           float& sigma, float& cr,
+                                           float& cg, float& cb) {
+  const int r = threadIdx.x;
+  encode_to<false, N::kNf>(x0, x1, x2, bound,
+                           [&](int f, float v) { A[f * kT2 + r] = v; });
+  f32_hidden<N, 0, kT2, kT2>(w, A);
+  f32_hidden<N, 1, kT2, kT2>(w, A);
+  f32_hidden<N, 2, kT2, kT2>(w, A);
+  f32_head<N, kT2, kT2>(w, A, [&](int p, float s) { sig[p] = s; });
+  float sh[16];
+  sh4<false>(dv[0], dv[1], dv[2], sh);
+#pragma unroll
+  for (int f = 0; f < 16; ++f) A[f * kT2 + r] = sh[f];
+  f32_hidden<N, 4, kT2, kT2>(w, A);
+  f32_hidden<N, 5, kT2, kT2>(w, A);
+  f32_rgb<N, kT2>(w, A, [&](float a, float b, float c) {
+    cr = a;
+    cg = b;
+    cb = c;
+  });
+  sigma = sig[r];    // written before color layer 0's first barrier
+}
+
+// The timed instantiations (TIMED, tile_kernel_timed.cu) add up each
 // warp's clock cycles per phase of a tile: window staging (its waits and
 // barriers included), the nearest-row scan, the bend and blend, the MLP,
 // the composite with the segment's early-exit barrier; then the tile's
@@ -362,24 +410,31 @@ __device__ __forceinline__ void bend_samples(
   clk.lap(2);
 }
 
+// The kernel's body; render_tiles_kernel (bf16) and render_tiles_kernel_f32
+// below are its entry points.
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
           class N, bool TIMED>
-__global__ void __launch_bounds__(kT2)
-render_tiles_kernel(const float* __restrict__ tile_sc,
-                    const int* __restrict__ bin_start,
-                    const float* __restrict__ params,
-                    const float* __restrict__ dirs,
-                    const float* __restrict__ cand,
-                    const float* __restrict__ pw, float* __restrict__ out,
-                    int A, int B, int BS, int P, int K, int Ks, int Ksb,
-                    int Wn, int num_seek, float bound,
-                    long long* __restrict__ cyc) {
+__device__ __forceinline__ void render_tiles_block(
+    const float* __restrict__ tile_sc, const int* __restrict__ bin_start,
+    const float* __restrict__ params, const float* __restrict__ dirs,
+    const float* __restrict__ cand, const float* __restrict__ pw,
+    float* __restrict__ out, int A, int B, int BS, int P, int K, int Ks,
+    int Ksb, int Wn, int num_seek, float bound, long long* __restrict__ cyc) {
   constexpr bool kWide = N::kWd == 128;
   static_assert(!PAIRED || !kWide, "only the 64-wide net pairs");
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);      // weights
   [[maybe_unused]] float* buf =                     // f32 activations
-      sw + (kWide ? N::kWd * N::kWd : N::wfloats());
+      sw + (kWide ? 2 * kChunkFloats : N::wfloats());
+  // f32 (not paired): the weights f32_sample's layers read, resident or
+  // streamed
+  [[maybe_unused]] auto w32 = [&] {
+    if constexpr (kWide) {
+      return F32Streamed<N>{pw, sw, 0};
+    } else {
+      return F32Resident<N>{sw};
+    }
+  }();
   // bf16: the weights in fragment order, then one staging tile a warp
   [[maybe_unused]] uint2* swm = reinterpret_cast<uint2*>(smem4);
   [[maybe_unused]] uint32_t* wtile = reinterpret_cast<uint32_t*>(
@@ -388,11 +443,9 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   // bending modes only: the bent positions and found flags of up to
   // kKsbMax samples [kKsbMax, 4, kT2]; each thread's count of the window
   // phases it has waited on [kT2]; the window's mbarrier; the window
-  // [Wn, 16]. In this order every offset is a constant; the counts sit in
-  // shared memory, not in a register, because the f32 Wd 64 MLP leaves no
-  // register free (a register count spilled 60 bytes there).
+  // [Wn, 16]. In this order every offset is a constant.
   [[maybe_unused]] float* xs = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(smem4) + mlp_bytes<BF16, N>());
+      reinterpret_cast<char*>(smem4) + mlp_bytes<BF16, PAIRED, N>());
   [[maybe_unused]] int* phase =
       reinterpret_cast<int*>(xs + kKsbMax * 4 * kT2);
   [[maybe_unused]] uint64_t* bar = reinterpret_cast<uint64_t*>(phase + kT2);
@@ -422,7 +475,7 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
   }
 
   PhaseClock<TIMED> clk;
-  bool staged = false;                  // Wd 64: the weights, once per block
+  bool staged = false;                  // the weights, once per block
   // without MULTI the trip count is a compile-time 1: a loop whose count
   // the compiler cannot see costs the static mode 19% (Wd 64) to 48%
   // (Wd 128) of its time, so one tile per block keeps its own
@@ -440,20 +493,21 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
       for (int row = 0; row < 8; ++row) o_t[row * kT2 + r] = 0.f;
       continue;
     }
-    if constexpr (BF16 || !kWide) {
-      if (!staged) {                    // tile-uniform, so block-uniform
-        if constexpr (BF16 && PAIRED) {
-          stage_mma_weights_paired<N>(swm, pw);
-        } else if constexpr (BF16) {
-          stage_mma_weights<N>(swm, pw);
-        } else if constexpr (PAIRED) {
-          stage_weights_paired<N>(sw, pw);
-        } else {
-          stage_weights<N>(sw, pw);
-        }
-        __syncthreads();
-        staged = true;
+    if (!staged) {                      // tile-uniform, so block-uniform
+      if constexpr (BF16 && PAIRED) {
+        stage_mma_weights_paired<N>(swm, pw);
+      } else if constexpr (BF16) {
+        stage_mma_weights<N>(swm, pw);
+      } else if constexpr (PAIRED) {
+        stage_weights_paired<N>(sw, pw);
+      } else if constexpr (kWide) {
+        w32.first();                    // the first chunk's copy, in flight
+      } else {
+        stage_weights<N>(sw, pw);
       }
+      // before the first read (the streamed chunks wait in their layer)
+      if constexpr (BF16 || !kWide) __syncthreads();
+      staged = true;
     }
 
     clk.tile_start(cyc, a);
@@ -480,8 +534,10 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
     const int halo =
         DEFORMED ? max((int)ceilf(reach / jmax(dt_s, 1e-9f)), 1) : 0;
 
-    float sh[16];
-    sh4<BF16>(dv[0], dv[1], dv[2], sh);
+    // SH(d): bf16 stages it once a tile, f32 paired keeps it for the color
+    // column (f32_sample recomputes it a sample)
+    [[maybe_unused]] float sh[16];
+    if constexpr (BF16 || PAIRED) sh4<BF16>(dv[0], dv[1], dv[2], sh);
     if constexpr (BF16) mma_stage_sh(wtile + (r & 31) * kTileWords, sh);
 
     // paired: this thread's sigma and color columns; the color column
@@ -553,13 +609,6 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
         } else if constexpr (BF16) {
           mma_field<N>(swm, wtile, xm0, xm1, xm2, bound, sigma, cr, cg,
                        cb);
-        } else if constexpr (kWide) {
-          // rays [128 h, 128 h + 128) own the samples of pass h
-          for (int h = 0; h < 2; ++h) {
-            field_points_wide<N>(sw, buf, buf + N::kWd * kWidePoints, pw,
-                                 r / kWidePoints == h, xm0, xm1, xm2,
-                                 bound, sh, sigma, cr, cg, cb);
-          }
         } else if constexpr (PAIRED) {
           encode<false, N::kNf>(xm0, xm1, xm2, bound, colS, kT2);
           {
@@ -592,8 +641,8 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
 #pragma unroll
           for (int i = 0; i < 15; ++i) colC[(16 + i) * kT2] = h4[1 + i];
         } else {
-          field_point(sw, buf, xm0, xm1, xm2, bound, sh, sigma, cr, cg,
-                      cb);
+          f32_sample<N>(w32, buf, buf + N::kWd * kT2, xm0, xm1, xm2, bound,
+                        dv, sigma, cr, cg, cb);
         }
         clk.lap(3);
 
@@ -755,15 +804,61 @@ render_tiles_kernel(const float* __restrict__ tile_sc,
     o_t[7 * kT2 + r] = 0.f;
     clk.tile_end(cyc, a);
   }
+  if constexpr (!BF16 && !PAIRED && kWide) {
+    if (staged) w32.last();             // the next pass's chunk, prefetched
+  }
+}
+
+#define PIENERF_TILE_ARGS                                                   \
+  const float *__restrict__ tile_sc, const int *__restrict__ bin_start,    \
+      const float *__restrict__ params, const float *__restrict__ dirs,    \
+      const float *__restrict__ cand, const float *__restrict__ pw,        \
+      float *__restrict__ out, int A, int B, int BS, int P, int K, int Ks, \
+      int Ksb, int Wn, int num_seek, float bound, long long *__restrict__ cyc
+#define PIENERF_TILE_CALL                                                  \
+  render_tiles_block<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>(        \
+      tile_sc, bin_start, params, dirs, cand, pw, out, A, B, BS, P, K, Ks, \
+      Ksb, Wn, num_seek, bound, cyc)
+
+// bf16: ptxas picks the registers (two blocks an SM at Wd 64).
+template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
+          class N, bool TIMED>
+__global__ void __launch_bounds__(kT2) render_tiles_kernel(PIENERF_TILE_ARGS) {
+  PIENERF_TILE_CALL;
+}
+
+// f32: its shared memory holds one block an SM, so a thread may take any
+// register; without the minimum ptxas held the static Wd 64 instantiation
+// to 128 registers and spilled.
+template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
+          class N, bool TIMED>
+__global__ void __launch_bounds__(kT2, 1)
+    render_tiles_kernel_f32(PIENERF_TILE_ARGS) {
+  PIENERF_TILE_CALL;
+}
+
+#undef PIENERF_TILE_ARGS
+#undef PIENERF_TILE_CALL
+
+// the entry point of an instantiation
+template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
+          class N, bool TIMED>
+constexpr auto tile_kernel_entry() {
+  if constexpr (BF16) {
+    return render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>;
+  } else {
+    return render_tiles_kernel_f32<BF16, DEFORMED, CUT, PAIRED, MULTI, N,
+                                   TIMED>;
+  }
 }
 
 // The dynamic shared memory of one launch at window Wn: the MLP's, and in
 // the bending modes the bent positions and found flags of kKsbMax samples,
 // the phase counts, the window's mbarrier (16 bytes, keeping the window
 // 16-byte aligned) and the candidate window.
-template <bool BF16, bool DEFORMED, class N>
+template <bool BF16, bool DEFORMED, bool PAIRED, class N>
 size_t launch_smem(int Wn) {
-  return mlp_bytes<BF16, N>() +
+  return mlp_bytes<BF16, PAIRED, N>() +
          (DEFORMED ? ((size_t)Wn * 16 + kKsbMax * 4 * kT2 + kT2) * 4 + 16
                    : 0);
 }
@@ -776,8 +871,8 @@ cudaError_t launch(const float* tile_sc, const int* bin_start,
                    int K, int Ks, int Ksb, int Wn, int num_seek, float bound,
                    long long* cyc, cudaStream_t stream) {
   auto kern =
-      render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>;
-  const size_t smem = launch_smem<BF16, DEFORMED, N>(Wn);
+      tile_kernel_entry<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>();
+  const size_t smem = launch_smem<BF16, DEFORMED, PAIRED, N>(Wn);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -797,8 +892,8 @@ template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
           class N, bool TIMED = false>
 cudaError_t occupancy(int Wn, int* resident, int* smem_bytes) {
   auto kern =
-      render_tiles_kernel<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>;
-  const size_t smem = launch_smem<BF16, DEFORMED, N>(Wn);
+      tile_kernel_entry<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>();
+  const size_t smem = launch_smem<BF16, DEFORMED, PAIRED, N>(Wn);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

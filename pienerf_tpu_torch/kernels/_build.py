@@ -24,6 +24,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 SOURCES = {"field": "field_kernel.cu", "tile": "tile_kernel.cu",
            "tile_block": "tile_kernel_block.cu",
+           "tile_timed": "tile_kernel_timed.cu",
            "tile_paired": "tile_kernel_paired.cu",
            "probes": "probe_kernels.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

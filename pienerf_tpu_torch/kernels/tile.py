@@ -13,9 +13,11 @@ the previous sample's color chain, rgb composites one segment late) and
 Both give the default schedule's output bit for bit. ``render_tiles``
 launches the kernel for CUDA tensors and takes ``render_tiles_plain`` only
 for CPU tensors. Every bf16 instantiation runs the field MLP on the tensor
-cores (``csrc/mma_mlp.cuh``), every f32 one on the CUDA cores.
+cores (``csrc/mma_mlp.cuh``), every f32 one on the CUDA cores (the default
+and ``block_tiles`` schedules register-blocked, ``csrc/field_f32.cuh``).
 ``render_tiles_timed`` launches the kernel's timed instantiation (CUDA
-only), which also returns where each tile's clock cycles went.
+only, either dtype), which also returns where each tile's clock cycles
+went.
 """
 
 from __future__ import annotations
@@ -421,9 +423,9 @@ def render_tiles(
 
     CPU tensors take render_tiles_plain; CUDA tensors launch the kernel in
     the mode ``mode_of(deformed, cut)`` at the net's width Wd and count the
-    launch in ``render_tiles.launches[(mode, Wd, schedule)]`` (schedule
-    "default", "paired" or "block"; a paired launch with B > 1 counts as
-    paired). ``paired`` None infers the
+    launch in ``render_tiles.launches[(mode, Wd, schedule, compute_dtype)]``
+    (schedule "default", "paired" or "block"; a paired launch with B > 1
+    counts as paired). ``paired`` None infers the
     pairing from the pack; ``block_tiles`` B > 1 renders B tiles per thread
     block, A padded to a multiple of B with inactive slots and the output
     cut back to A."""
@@ -445,7 +447,8 @@ def render_tiles(
     out = _launch(name, "pienerf_render_" + name.replace("tile", "tiles"),
                   spec, packed_w, tile_sc, bin_start, params, dirs, cand, B,
                   paired, wd, None, **kw)
-    render_tiles.launches[launch_key(mode, wd, paired, B)] += 1
+    render_tiles.launches[launch_key(mode, wd, paired, B,
+                                     spec.compute_dtype)] += 1
     return out
 
 
@@ -460,8 +463,9 @@ def render_tiles_timed(
     *, K: int, Ks: int, Ksb: int, Wn: int, num_seek: int,
     cut: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tile kernel's timed instantiation (bf16, the default schedule,
-    deformed or cut mode, either width) on CUDA tensors -> (out, cycles).
+    """The tile kernel's timed instantiation (f32 or bf16, the default
+    schedule, deformed or cut mode, either width) on CUDA tensors -> (out,
+    cycles).
     ``out`` equals ``render_tiles``'s bit for bit; ``cycles`` [A, 8, 8]
     int64 holds, per tile and warp, the clock64() cycles of the five
     phases (window staging, scan, bend and blend, MLP, composite with the
@@ -470,14 +474,12 @@ def render_tiles_timed(
     measurement for ``chip_smoke.py``; it counts no launch."""
     if tile_sc.device.type != "cuda":
         raise ValueError("render_tiles_timed runs on CUDA tensors only")
-    if spec.compute_dtype != "bfloat16":
-        raise ValueError("render_tiles_timed is instantiated for bf16 only")
     _check_shapes(cand, bin_start, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn,
                   num_seek=num_seek, block_tiles=1)
     wd = check_kernel_spec(spec, packed_w, allow_paired=False)
     cycles = torch.zeros((tile_sc.shape[0], T2 // 32, SPLIT_COLS),
                          dtype=torch.int64, device=tile_sc.device)
-    out = _launch("tile", "pienerf_render_tiles_timed", spec, packed_w,
+    out = _launch("tile_timed", "pienerf_render_tiles_timed", spec, packed_w,
                   tile_sc, bin_start, params, dirs, cand, 1, False, wd,
                   cycles, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
                   deformed=True, cut=cut)
@@ -541,14 +543,17 @@ def _launch(lib_name, fn_name, spec, packed_w, tile_sc, bin_start, params,
     return out[:A0]
 
 
-def launch_key(mode: str, wd: int, paired: bool, block_tiles: int):
+def launch_key(mode: str, wd: int, paired: bool, block_tiles: int,
+               dtype: str):
     """The ``render_tiles.launches`` entry a launch counts in: (mode, net
-    width, schedule), the schedule one of ``SCHEDULES``."""
+    width, schedule, compute dtype), the schedule one of ``SCHEDULES``, the
+    dtype one of ``DTYPES``."""
     return (mode, wd, "paired" if paired
-            else "block" if block_tiles > 1 else "default")
+            else "block" if block_tiles > 1 else "default", dtype)
 
 
 SCHEDULES = ("default", "paired", "block")
+DTYPES = ("float32", "bfloat16")
 render_tiles.launches = {
-    (m, wd, v): 0 for m in MODES for wd in WIDTHS for v in SCHEDULES
-    if not (v == "paired" and wd != 64)}
+    (m, wd, v, t): 0 for m in MODES for wd in WIDTHS for v in SCHEDULES
+    for t in DTYPES if not (v == "paired" and wd != 64)}

@@ -270,7 +270,7 @@ def main(argv=None):
     print(f"wrote {ns.frames} frames to {ns.out_dir}/")
     launched = {f"field_w{w}_{t}": n for (w, t), n
                 in field_kernel.field_eval.launches.items() if n}
-    launched.update({f"tile_{m}_w{w}_{s}": n for (m, w, s), n
+    launched.update({f"tile_{m}_w{w}_{s}_{t}": n for (m, w, s, t), n
                      in tile_kernel.render_tiles.launches.items() if n})
     print(f"kernel launches: {json.dumps(launched)}")
 

@@ -135,7 +135,7 @@ def main(argv=None):
                                   cut_bounds=cut_bounds, port=ns.port,
                                   max_frames=ns.frames,
                                   target_ms=ns.target_ms)
-    launched = {f"tile_{m}_w{w}_{s}": n for (m, w, s), n
+    launched = {f"tile_{m}_w{w}_{s}_{t}": n for (m, w, s, t), n
                 in tile_kernel.render_tiles.launches.items() if n}
     print(f"kernel launches: {json.dumps(launched)}", flush=True)
 

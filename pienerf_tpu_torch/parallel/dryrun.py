@@ -305,7 +305,7 @@ def _launches() -> dict:
 
     out = {f"field_w{w}_{t}": n for (w, t), n
            in fk.field_eval.launches.items() if n}
-    out.update({f"tile_{m}_w{w}_{s}": n for (m, w, s), n
+    out.update({f"tile_{m}_w{w}_{s}_{t}": n for (m, w, s, t), n
                 in tk.render_tiles.launches.items() if n})
     fk.field_eval.launches = dict.fromkeys(fk.field_eval.launches, 0)
     tk.render_tiles.launches = dict.fromkeys(tk.render_tiles.launches, 0)

@@ -14,6 +14,16 @@ from pienerf_tpu_torch.ops import beam_bend as tbb
 from pienerf_tpu_torch.ops import bending as tbend
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

@@ -18,11 +18,12 @@ retires its group, or when its thread ends; a wait yields its fiber until
 the phase completes. Shared memory is filled with NaN before every block,
 so a slot read before its wait, or overwritten before its store has read
 it, gives a wrong row (``MBAR_REF_CU`` shows both are caught). The f32
-field kernel is also held bit for bit against the per-point FMA chains it
-replaced (``FIELD_REF_CU``). The fibers run in a fixed order that reverses
-from pass to pass, so a missing barrier shows on every run. This checks
-the kernels' indexing, barriers and control flow; the card's compiler,
-timing and rounding are checked by ``chip_smoke.py``."""
+field and tile kernels are also held bit for bit against the per-point FMA
+chains their register-blocked MLP replaced (``PER_POINT_CUH``, through
+``FIELD_REF_CU`` and ``TILE_REF_CU``). The fibers run in a fixed order
+that reverses from pass to pass, so a missing barrier shows on every run.
+This checks the kernels' indexing, barriers and control flow; the card's
+compiler, timing and rounding are checked by ``chip_smoke.py``."""
 
 import ctypes
 import ctypes.util
@@ -444,13 +445,140 @@ inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
 """
 
+# The f32 MLP the port's kernels ran before the register-blocked layers of
+# csrc/field_f32.cuh: one point a thread through field_point (Net64) and
+# 128 points a pass, two threads a point, through field_points_wide
+# (Net128), with the shared memory they took (mlp_smem_bytes), as
+# csrc/field_mlp.cuh held them. FIELD_REF_CU and TILE_REF_CU keep them, so
+# that the kernels are held bit for bit to these chains.
+PER_POINT_CUH = r"""
+#pragma once
+#include "field_mlp.cuh"
+namespace pienerf {
+constexpr int kWidePoints = 128;        // points per Net128 pass
+
+// Shared memory a block needs for the MLP. Net64: all weights plus two
+// 64-wide activation columns per thread. Net128: one layer's weights plus
+// the two [128][128] activation buffers.
+template <class N>
+__host__ __device__ constexpr size_t mlp_smem_floats(int threads) {
+  return N::kWd == 64
+             ? (size_t)N::wfloats() + 2 * (size_t)N::kWd * threads
+             : (size_t)N::kWd * N::kWd + 2 * (size_t)N::kWd * kWidePoints;
+}
+template <class N>
+__host__ __device__ constexpr size_t mlp_smem_bytes(int threads) {
+  return mlp_smem_floats<N>(threads) * sizeof(float);
+}
+
+// Field at one point with Net64: sigma (f32, before density scale) and
+// rgb. `sh` holds the point's direction encoding from sh4<false>; `sw` the
+// staged weights; `buf` is the block's activation area (2 * 64 *
+// blockDim.x floats).
+__device__ __forceinline__ void field_point(const float* __restrict__ sw,
+                                            float* __restrict__ buf,
+                                            float x0, float x1, float x2,
+                                            float bound, const float (&sh)[16],
+                                            float& sigma, float& r, float& g,
+                                            float& b) {
+  using N = Net64;
+  constexpr int WD = N::kWd;
+  const int stride = blockDim.x;
+  float* A = buf + threadIdx.x;
+  float* B = buf + WD * stride + threadIdx.x;
+  encode<false, N::kNf>(x0, x1, x2, bound, A, stride);
+  hidden<N::kEnc, WD>(sw + N::off(0), A, B, stride);
+  hidden<WD, WD>(sw + N::off(1), B, A, stride);
+  hidden<WD, WD>(sw + N::off(2), A, B, stride);
+  float h4[16];
+  last<WD, 16, 16>(sw + N::off(3), B, stride, h4);
+  sigma = expf(fminf(fmaxf(h4[0], -15.f), 15.f));
+
+#pragma unroll
+  for (int i = 0; i < 16; ++i) A[i * stride] = sh[i];
+#pragma unroll
+  for (int i = 0; i < 15; ++i) A[(16 + i) * stride] = h4[1 + i];
+  hidden<31, WD>(sw + N::off(4), A, B, stride);
+  hidden<WD, WD>(sw + N::off(5), B, A, stride);
+  float c3[3];
+  last<WD, 4, 3>(sw + N::off(6), A, stride, c3);
+  r = 1.f / (1.f + expf(-c3[0]));
+  g = 1.f / (1.f + expf(-c3[1]));
+  b = 1.f / (1.f + expf(-c3[2]));
+}
+
+// One layer of the wide pass: stage layer L's weights, then thread
+// (point p, half g) computes outputs [g * OUTP/2, (g + 1) * OUTP/2) of its
+// point from column h into column out (stride kWidePoints). Both
+// __syncthreads are block-wide: every thread of the block must call it.
+template <class N, int L, bool RELU>
+__device__ __forceinline__ void wide_layer(float* __restrict__ sw,
+                                           const float* __restrict__ pw,
+                                           const float* __restrict__ h,
+                                           float* __restrict__ out, int g) {
+  constexpr int IN = N::in(L), OUTP = N::outp(L), NACC = OUTP / 2;
+  stage_layer<N, L>(sw, pw);
+  __syncthreads();                     // weights and the layer input ready
+  const int o0 = g * NACC;
+  float acc[NACC];
+  accumulate<IN, NACC, OUTP>(sw + o0, h, kWidePoints, acc);
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) {
+    out[(o0 + j) * kWidePoints] = RELU ? fmaxf(acc[j], 0.f) : acc[j];
+  }
+  __syncthreads();                     // outputs written; sw free again
+}
+
+// The wide net (Net128) for kWidePoints points, by all 256 threads of the
+// block: thread t works on point p = t & 127 and output half g = t >> 7.
+// For each point exactly one thread is its `owner`: it supplies x and sh
+// and receives sigma and rgb (other threads' arguments are ignored and
+// their outputs untouched). A and B are the two [128][128] activation
+// buffers, sw room for one layer. Block-wide: every thread must call it.
+template <class N>
+__device__ __forceinline__ void field_points_wide(
+    float* __restrict__ sw, float* __restrict__ A, float* __restrict__ B,
+    const float* __restrict__ pw, bool owner, float x0, float x1, float x2,
+    float bound, const float (&sh)[16], float& sigma, float& r, float& g,
+    float& b) {
+  static_assert(N::kWd == 2 * 64, "two threads of 64 outputs per point");
+  constexpr int S = kWidePoints;
+  const int p = threadIdx.x & (S - 1);
+  const int half = threadIdx.x / S;
+  float* a = A + p;
+  float* bb = B + p;
+  __syncthreads();                     // earlier readers of A, B are done
+  if (owner) encode<false, N::kNf>(x0, x1, x2, bound, a, S);
+  wide_layer<N, 0, true>(sw, pw, a, bb, half);
+  wide_layer<N, 1, true>(sw, pw, bb, a, half);
+  wide_layer<N, 2, true>(sw, pw, a, bb, half);
+  wide_layer<N, 3, false>(sw, pw, bb, a, half);     // 16 rows in A
+  if (owner) {
+    sigma = expf(fminf(fmaxf(a[0], -15.f), 15.f));
+#pragma unroll
+    for (int i = 0; i < 16; ++i) bb[i * S] = sh[i];
+#pragma unroll
+    for (int i = 0; i < 15; ++i) bb[(16 + i) * S] = a[(1 + i) * S];
+  }
+  wide_layer<N, 4, true>(sw, pw, bb, a, half);
+  wide_layer<N, 5, true>(sw, pw, a, bb, half);
+  wide_layer<N, 6, false>(sw, pw, bb, a, half);     // 4 rows in A
+  if (owner) {
+    r = 1.f / (1.f + expf(-a[0]));
+    g = 1.f / (1.f + expf(-a[S]));
+    b = 1.f / (1.f + expf(-a[2 * S]));
+  }
+}
+
+}  // namespace pienerf
+"""
+
 # The f32 field kernel as it was before the register-blocked MLP: one
 # point a thread through field_point (Net64) and 128 points a pass, two
-# threads a point, through field_points_wide (Net128), both still in
-# field_mlp.cuh (the tile kernel's f32 path). The field kernel must equal
-# it bit for bit.
+# threads a point, through field_points_wide (Net128). The field kernel
+# must equal it bit for bit.
 FIELD_REF_CU = r"""
-#include "field_mlp.cuh"
+#include "per_point_ref.cuh"
 namespace pienerf {
 __global__ void field_ref64(const float* x, const float* d, const float* pw,
                             float* out, int n, float bound) {
@@ -567,8 +695,9 @@ extern "C" int bulk_store_overwrite(const float* row, float* out,
 # The tile kernel as it was before the one-pass window scan: per sample,
 # num_seek argmin passes over the staged window's rows (each row tested
 # against [rlo, rhi), its validity and the rows already taken), the window
-# staged by scalar copies between two barriers. The kernel must equal it
-# bit for bit: the same rows in the same order, the same sums.
+# staged by scalar copies between two barriers, and its f32 MLP the
+# per-point chains of PER_POINT_CUH. The kernel must equal it bit for bit:
+# the same rows in the same order, the same sums.
 TILE_REF_KERNEL = r"""
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
           class N>
@@ -593,7 +722,7 @@ render_tiles_ref(const float* __restrict__ tile_sc,
       reinterpret_cast<char*>(smem4) + N::frag_bytes() +
       (threadIdx.x >> 5) * kWarpTileBytes);
   float* win = reinterpret_cast<float*>(  // [Wn, 16], bending modes only
-      reinterpret_cast<char*>(smem4) + mlp_bytes<BF16, N>());
+      reinterpret_cast<char*>(smem4) + ref_mlp_bytes<BF16, N>());
   const int r = threadIdx.x;
 
   const float o[3] = {params[0], params[1], params[2]};
@@ -945,7 +1074,13 @@ render_tiles_ref(const float* __restrict__ tile_sc,
 
 TILE_REF_CU = r"""
 #include "tile_kernel.cuh"
+#include "per_point_ref.cuh"
 namespace pienerf {
+// the reference's MLP shared memory: the per-point f32 path's, or bf16's
+template <bool BF16, class N>
+constexpr size_t ref_mlp_bytes() {
+  return BF16 ? mma_smem_bytes<N>(kT2) : mlp_smem_bytes<N>(kT2);
+}
 """ + TILE_REF_KERNEL + r"""
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
           class N>
@@ -955,7 +1090,7 @@ cudaError_t ref_launch(const float* tile_sc, const int* bin_start,
                        int B, int BS, int P, int K, int Ks, int Ksb, int Wn,
                        int num_seek, float bound) {
   auto kern = render_tiles_ref<BF16, DEFORMED, CUT, PAIRED, MULTI, N>;
-  const size_t smem = mlp_bytes<BF16, N>() +
+  const size_t smem = ref_mlp_bytes<BF16, N>() +
                       (DEFORMED ? (size_t)Wn * 16 * sizeof(float) : 0);
   cudaStream_t st = nullptr;
   kern<<<(A + B - 1) / B, kT2, smem, st>>>(tile_sc, bin_start, params, dirs,
@@ -1029,6 +1164,16 @@ extern "C" int window_read_run(const float* src, int Wn, float* early,
 }
 """
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """Every kernel source built for the emulation, loaded with ctypes."""
@@ -1039,6 +1184,7 @@ def libs(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
     (d / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
+    (d / "per_point_ref.cuh").write_text(PER_POINT_CUH)
 
     def emulated(code, is_cu=True):
         """kern<<<grid, block, smem, stream>>>(args) -> emu_launch(...), in
@@ -1311,7 +1457,7 @@ def _tile_run(libs, spec, pw, args, kw, block_tiles=1, timed=False):
     A, P = a[4].shape[0], a[4].shape[1]
     out = np.full((A, 8, ttk.T2), np.nan, np.float32)
     cycles = np.zeros((A, ttk.T2 // 32, ttk.SPLIT_COLS), np.int64)
-    fn = (libs["tile"].pienerf_render_tiles_timed if timed
+    fn = (libs["tile_timed"].pienerf_render_tiles_timed if timed
           else libs["tile_paired"].pienerf_render_tiles_paired if paired
           else libs["tile_block"].pienerf_render_tiles_block
           if block_tiles > 1 else libs["tile"].pienerf_render_tiles)
@@ -1491,6 +1637,28 @@ def test_emulated_block_tiles_equals_one_tile_per_block(libs, mode, wd,
     np.testing.assert_array_equal(out, ref)
 
 
+@pytest.mark.parametrize("schedule", ["default", "block"])
+@pytest.mark.parametrize("mode", ["deformed", "static", "cut"])
+@pytest.mark.parametrize("wd", [64, 128])
+def test_emulated_f32_tile_kernel_equals_per_point_chains(libs, wd, mode,
+                                                          schedule):
+    """The f32 tile kernel's register-blocked MLP (f32_sample: one sample
+    of each of the block's 256 rays a pass through field_f32.cuh's layers)
+    against the per-point FMA chains it replaced (TILE_REF_KERNEL through
+    PER_POINT_CUH's field_point and field_points_wide): every output is the
+    same chain in the same order, so the two agree bit for bit, in every
+    mode at both widths, one tile a block and three (block_tiles: Net64's
+    weights staged once, Net128's chunks streamed on across the tiles, one
+    slot padded)."""
+    spec, pw = _weights(wd, 5)
+    args, kw = _tile_inputs(mode)
+    B = 3 if schedule == "block" else 1
+    out = _tile_run(libs, spec, pw, args, kw, block_tiles=B)
+    ref = _tile_ref_run(libs, spec, pw, args, kw, block_tiles=B)
+    assert ref[:, 4].max() > 0.1 and np.isfinite(ref).all()
+    np.testing.assert_array_equal(out, ref)
+
+
 def _tile_ref_run(libs, spec, pw, args, kw, block_tiles=1):
     """The tile kernel before the one-pass scan (TILE_REF_KERNEL, commit
     db7d684), emulated, launched as
@@ -1635,17 +1803,18 @@ def test_emulated_tile_scan_equals_argmin_passes(libs, feature, num_seek,
     assert np.isfinite(ref[:, 4]).any() and ref[:, 4].max() > 0
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("mode,wd", [("deformed", 64), ("cut", 64),
                                      ("deformed", 128), ("cut", 128)])
-def test_emulated_timed_tile_kernel_equals_untimed(libs, mode, wd):
-    """The timed instantiation (bf16) adds clock reads and nothing else:
-    its output equals the untimed kernel's bit for bit. Every active
+def test_emulated_timed_tile_kernel_equals_untimed(libs, mode, wd, dtype):
+    """The timed instantiation (either dtype) adds clock reads and nothing
+    else: its output equals the untimed kernel's bit for bit. Every active
     tile's warps count cycles in every phase it ran (the emulated clock
     ticks once a read), the phases add up to no more than the tile's
     total, its global-timer span is positive, and inactive slots stay
     zero."""
     spec, pw = _weights(wd, 3)
-    spec = spec._replace(compute_dtype="bfloat16")
+    spec = spec._replace(compute_dtype=dtype)
     args, kw = _tile_inputs(mode)
     ref = _tile_run(libs, spec, pw, args, kw)
     out, cyc = _tile_run(libs, spec, pw, args, kw, timed=True)

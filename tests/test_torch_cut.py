@@ -34,6 +34,16 @@ INTR = (64.0, 64.0, W / 2, H / 2)
 COUNTERS = ("n_active", "n_tile_overflow", "dropped_beam", "dropped_window")
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_params(seed=0):
     """Random mlp-backbone weights from numpy (Kaiming-uniform bounds)."""
     rng = np.random.RandomState(seed)

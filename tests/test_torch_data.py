@@ -35,6 +35,16 @@ from pienerf_tpu_torch.utils import mesh as tmesh
 T = torch.as_tensor
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def A(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 

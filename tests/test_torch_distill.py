@@ -39,6 +39,16 @@ T = torch.as_tensor
 GRID_KW = dict(num_levels=4, log2_hashmap_size=12, desired_resolution=64)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def A(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 

@@ -18,6 +18,16 @@ GUI_FLAGS = ["--exp_name", "cube", "--backbone", "mlp", "--sim_dx", "0.2",
              "--max_iter_num", "1", "--num_seek_IP", "3"]
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _read_png(path):
     """Decode an 8-bit RGB PNG written without filters."""
     with open(path, "rb") as f:

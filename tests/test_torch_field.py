@@ -22,6 +22,16 @@ CKPT = os.path.join(os.path.dirname(__file__), "..",
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nets(dtype="float32", seed=0):
     jspec = jnet.make_spec(bound=1.0, backbone="mlp", compute_dtype=dtype)
     params = jax.device_get(jnet.init_params(jax.random.PRNGKey(seed), jspec))

@@ -25,6 +25,16 @@ from pienerf_tpu_torch.tools import gather_probe, micro_floor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_tool(name):
     """A tool of the JAX package, loaded from its file (tools/ is no
     package)."""

@@ -19,6 +19,16 @@ from pienerf_tpu_torch.models import network as tnet
 K, KS, KSB = 32, 8, 4
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cloud(dx=0.08, r0=0.45, amp=0.5):
     c = np.arange(-r0, r0 + 1e-6, dx, dtype=np.float32)
     xx, yy, zz = np.meshgrid(c, c, c, indexing="ij")

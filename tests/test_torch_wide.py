@@ -35,6 +35,16 @@ CB = np.asarray([0.0, 0.5, -0.5, 0.5, -0.5, 0.5], np.float32)
 COUNTERS = ("n_active", "n_tile_overflow", "dropped_beam", "dropped_window")
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tensors here are small, and the test
+    workers share the machine's cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _specs(dtype="float32"):
     return (jnet.make_spec(bound=1.0, backbone="mlp", compute_dtype=dtype,
                            **WIDE),
