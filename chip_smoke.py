@@ -74,8 +74,9 @@ entry points at full width on the trained checkpoint:
     frame, plain and paired), each against one process's result.
 
 The bf16 instantiations of both kernels run the field MLP on the tensor
-cores, the f32 ones on the CUDA cores: the build phase reports every
-instantiation's registers, spills and resident blocks per SM, and
+cores (warpgroup MMAs), the f32 ones on the CUDA cores: the build phase
+reports every instantiation's registers, spills, shared memory and
+resident blocks per SM, and fails if ptxas serialised any warpgroup MMA;
 field_mlp_bf16 times the tensor-core MLP alone (the field kernel at
 N = 2^20) against its bound. The kernels line holds only this run's
 readings; the prior_ms line just before it gives each kernel's time before
@@ -86,7 +87,9 @@ commit's time too (``pr5_ms``), and for the two fetches redesigned since
 commit 9fe92db (``dynslice_fetch`` as one warp-wide access a row,
 ``dma_fetch`` on bulk copies and mbarriers) that commit's time
 (``pr6_ms``), and for the tile kernel's rows, whose window scan is one
-pass a sub-segment since commit db7d684, that commit's time (``pr7_ms``).
+pass a sub-segment since commit db7d684, that commit's time (``pr7_ms``),
+and for the bf16 rows, whose MLP issued mma.sync one warp at a time at
+commit 12c2c3c, that commit's time (``pr13_ms``).
 tile_split runs the tile kernel's timed instantiation on the bench
 inputs (deformed, both widths) and the cut pass's, in bf16 and in f32: its
 output equal to the untimed kernel's, where each tile's cycles go (window
@@ -95,9 +98,12 @@ card's slots. Every tile check times the f32 kernel too (the dtype
 main_gui and main_viewer run without -O; its MLP register-blocked on the
 CUDA cores), and frame_f32 runs main path 1 in f32. With
 PIENERF_TILE_BASELINE set to an unpacked checkout of another commit (the
-parent, say), the script also builds that commit's tile libraries and
-times each f32 tile row and the f32 frame on them in turns with this
-tree's (``before_ms``), their outputs held equal bit for bit.
+parent, say), the script also builds that commit's field and tile
+libraries and times every tile row and both field rows in either dtype,
+field_mlp_bf16, tile_split's timed instantiation and the f32 frame on
+them in turns with this tree's (``before_ms``, ``before``): the f32
+outputs held equal bit for bit, the bf16 ones to the bf16 limits each
+holds against its plain version.
 field_kernel_embedded holds the
 f32 field kernel at Wd 128 on the embedded checkpoint bit for bit to Wd 64;
 big_sim holds bf16 operator storage to the JAX package's own reading and
@@ -197,6 +203,15 @@ PR7_MS = {"tile_kernel": 3.297, "tile_kernel_static": 8.210,
           "tile_kernel_static_w128": 22.65, "tile_kernel_cut_w128": 9.338,
           "tile_kernel_paired": 3.389, "tile_kernel_paired_static": 8.017,
           "tile_kernel_paired_cut": 3.308, "tile_kernel_block": 7.082}
+# the bf16 rows' times at commit 12c2c3c (the same script and card), whose
+# bf16 MLP issued mma.sync.m16n8k16 one warp at a time: the field kernel
+# (its bf16 reading) and every tile row
+PR13_MS = {"field_kernel": 0.1546, "field_kernel_w128": 0.4363,
+           "tile_kernel": 2.054, "tile_kernel_static": 8.244,
+           "tile_kernel_cut": 2.699, "tile_kernel_w128": 4.226,
+           "tile_kernel_static_w128": 22.70, "tile_kernel_cut_w128": 7.385,
+           "tile_kernel_paired": 2.046, "tile_kernel_paired_static": 7.972,
+           "tile_kernel_paired_cut": 2.757, "tile_kernel_block": 4.327}
 # bf16 storage of the sim operator moves one step of the 8,144-IP big_sim
 # scene by about 5% of the state's scale, and that is the reference's own
 # behaviour: from the same state after the same 20-step drag, JAX's
@@ -282,6 +297,12 @@ def frame_profile(prof, n_frames: int, ms_per_frame: float) -> dict:
                 tile_kernel_device_ms=tile_us / per,
                 ms_per_frame_unprofiled=ms_per_frame,
                 device_idle_share=1.0 - busy_ms / ms_per_frame)
+
+
+# ptxas's note that it issued an entry's warpgroup MMAs one at a time
+# (accumulators touched between issue and wait, or a pipeline it cannot
+# prove), which undoes their asynchrony
+WGMMA_SERIALIZED = re.compile(r"wgmma.*serializ")
 
 
 def ptxas_report(log: str) -> list:
@@ -441,8 +462,9 @@ def field_check(phase, fk, pw, specs, rng) -> dict:
                            guard=FIELD_BF16_GUARD,
                            control={k_: v for k_, v in err(k32, p).items()})
             if n == 1 << 20:
-                row["ms"] = cuda_ms(lambda: fk.field_eval(pw, spec, x, d),
-                                    10)
+                row.update(timed_turns(
+                    lambda: fk.field_eval(pw, spec, x, d), 10,
+                    hold=field_hold(f32)))
                 row["plain_ms"] = cuda_ms(
                     lambda: fk.field_eval_plain(pw, spec, x, d), 3)
                 flops = 2.0 * FIELD_MACS[wd] * n
@@ -464,6 +486,27 @@ def field_check(phase, fk, pw, specs, rng) -> dict:
             assert (ctl["rgb_psnr"] < FIELD_BF16_DB or ctl["sigma_mean_rel"]
                     > FIELD_BF16_SIGMA_MEAN_REL), row
     return rows
+
+
+def field_hold(f32):
+    """timed_turns' comparison of two field kernel outputs (sigma, rgb):
+    f32 bit for bit; bf16 at the limits each holds against its plain
+    version (rgb PSNR and mean sigma relative error)."""
+    import torch
+
+    def hold(b, n):
+        if f32:
+            eq = bool(torch.equal(b[0], n[0]) and torch.equal(b[1], n[1]))
+            assert eq
+            return {"before_equal": eq}
+        rel = float(((b[0] - n[0]).abs() / n[0].abs().clamp(min=1e-6))
+                    .mean())
+        mse = float(((b[1] - n[1]).double() ** 2).mean())
+        p = float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+        assert p >= FIELD_BF16_DB and rel <= FIELD_BF16_SIGMA_MEAN_REL, (
+            p, rel)
+        return {"before_psnr_rgb": p, "before_sigma_mean_rel": rel}
+    return hold
 
 
 def printed(counts: dict, key: str) -> int:
@@ -502,15 +545,16 @@ def tile_bound(tk, pw, args, kw, out, segments, peak_mlp) -> dict:
                           else "bytes"))
 
 
-# the parent commit's tile libraries for the f32 before / after columns,
-# built from $PIENERF_TILE_BASELINE/pienerf_tpu_torch/csrc when that is set
-# (an unpacked checkout of the parent); empty otherwise
+# the parent commit's field and tile libraries for the before / after
+# columns, built from $PIENERF_TILE_BASELINE/pienerf_tpu_torch/csrc when
+# that is set (an unpacked checkout of the parent); empty otherwise
 BASELINE_ENV = "PIENERF_TILE_BASELINE"
 BASELINE_LIBS = {}
+BASELINE_NAMES = ("field", "tile", "tile_block", "tile_paired", "tile_timed")
 
 
 def start_baseline(_build) -> dict:
-    """Start one nvcc per baseline tile library, beside the main build."""
+    """Start one nvcc per baseline library, beside the main build."""
     root = os.environ.get(BASELINE_ENV)
     if not root:
         return {}
@@ -518,7 +562,7 @@ def start_baseline(_build) -> dict:
     out = os.path.join(ROOT, "build", "tile_baseline")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name in ("tile", "tile_block"):
+    for name in BASELINE_NAMES:
         so = os.path.join(out, f"lib{name}.so")
         cmd = [_build._nvcc()] + _build.NVCC_FLAGS + [
             "-o", so, os.path.join(csrc, _build.SOURCES[name])]
@@ -539,7 +583,7 @@ def finish_baseline(procs) -> None:
 
 
 def on_baseline(fn):
-    """fn() with the baseline tile libraries in place of this tree's."""
+    """fn() with the baseline libraries in place of this tree's."""
     from pienerf_tpu_torch.kernels import _build
     saved = dict(_build._libs)
     _build._libs.update(BASELINE_LIBS)
@@ -550,10 +594,11 @@ def on_baseline(fn):
         _build._libs.update(saved)
 
 
-def timed_f32(run, reps) -> dict:
+def timed_turns(run, reps, hold=None) -> dict:
     """``run``'s device ms; with the baseline libraries also theirs, in
-    turns (baseline, this tree, this tree, baseline), and whether the two
-    outputs are equal bit for bit."""
+    turns (baseline, this tree, this tree, baseline), and the two outputs
+    compared: bit for bit (``before_equal``), or, given ``hold``, by
+    ``hold(baseline's, this tree's)``, a dict of readings."""
     import torch
     if not BASELINE_LIBS:
         return {"ms": cuda_ms(run, reps)}
@@ -565,7 +610,19 @@ def timed_f32(run, reps) -> dict:
     torch.cuda.synchronize()
     return {"ms": float(np.mean(n)), "ms_reps": n,
             "before_ms": float(np.mean(b)), "before_ms_reps": b,
-            "before_equal": bool(torch.equal(out_b, out_n))}
+            **({"before_equal": bool(torch.equal(out_b, out_n))}
+               if hold is None else hold(out_b, out_n))}
+
+
+def rgb_psnr_hold(limit_db):
+    """timed_turns' comparison of two bf16 tile outputs: the rgb rows'
+    PSNR (``before_psnr_rgb``), which must reach ``limit_db``, the limit
+    each holds against its plain version."""
+    def hold(b, n):
+        p = psnr(b[:, 0:3].cpu().numpy(), n[:, 0:3].cpu().numpy())
+        assert p >= limit_db, (p, limit_db)
+        return {"before_psnr_rgb": p}
+    return hold
 
 
 def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
@@ -579,8 +636,8 @@ def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
     summation order immaterial: with every block filled, one f32 rounding
     difference can flip a ray's T_thresh test and move it by a sample's
     weight, which the f32 line reports as ``filled_*`` without asserting.
-    Each line carries its kernel's ms on ``pw`` (f32 beside the baseline's
-    when one is built), the plain version's ms and the bound at that
+    Each line carries its kernel's ms on ``pw`` (beside the baseline's,
+    in turns, when one is built), the plain version's ms and the bound at that
     dtype's peak. Returns {"float32": row, "bfloat16": row}."""
     import torch
     spec32, spec16 = specs
@@ -604,8 +661,8 @@ def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
         ko32, _, err_f = f32_pair(pw, stats32)
         row.update(filled_max_abs_err=float(err_f.max()),
                    filled_rays_over_1e4=int((err_f > 1e-4).any(1).sum()))
-    row.update(timed_f32(lambda: tk.render_tiles(spec32, pw, *args, **kw),
-                         3))
+    row.update(timed_turns(lambda: tk.render_tiles(spec32, pw, *args, **kw),
+                           3))
     row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
         spec32, pw, *args, **kw), 1)
     row.update(tile_bound(tk, pw, args, kw, ko, stats32["segments"],
@@ -624,7 +681,8 @@ def tile_check(phase, tk, specs, pw, args, kw, limit_db=TILE_BF16_DB,
                psnr_rgb=psnr(ko[:, 0:3].cpu().numpy(), po_rgb),
                control_psnr_rgb=psnr(ko32[:, 0:3].cpu().numpy(), po_rgb),
                limit_db=limit_db)
-    row["ms"] = cuda_ms(lambda: tk.render_tiles(spec16, pw, *args, **kw), 5)
+    row.update(timed_turns(lambda: tk.render_tiles(spec16, pw, *args, **kw),
+                           5, hold=rgb_psnr_hold(limit_db)))
     row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
         spec16, pw, *args, **kw), 1)
     row.update(tile_bound(tk, pw, args, kw, ko, stats["segments"],
@@ -668,11 +726,9 @@ def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
                    dropped_equal=bool(torch.equal(ko[:, 5], po[:, 5])),
                    executed_segments=stats["segments"])
         if f32:
-            # its ms (beside the baseline's for block_tiles, whose library
-            # the baseline rebuilds) and the default schedule's
+            # its ms (beside the baseline's) and the default schedule's
             run_v = (lambda: tk.render_tiles(spec, pw_variant, *args, **vkw))
-            row.update(timed_f32(run_v, 3) if pw_variant is pw
-                       else {"ms": cuda_ms(run_v, 3)})
+            row.update(timed_turns(run_v, 3))
             row["default_ms"] = cuda_ms(
                 lambda: tk.render_tiles(spec, pw, *args, **kw), 3)
             row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
@@ -698,8 +754,13 @@ def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
     ms_d = [cuda_ms(run_default, 5)]
     ms_v = [cuda_ms(run_variant, 5), cuda_ms(run_variant, 5)]
     ms_d.append(cuda_ms(run_default, 5))
+    # the baseline's variant in turns with this tree's
+    before = {k: v for k, v in timed_turns(
+        run_variant, 5, hold=rgb_psnr_hold(limit_db)).items()
+        if k.startswith("before_")}
     row.update(ms=float(np.mean(ms_v)), default_ms=float(np.mean(ms_d)),
                ms_reps=ms_v, default_ms_reps=ms_d, limit_db=limit_db,
+               **before,
                plain_ms=cuda_ms(lambda: tk.render_tiles_plain(
                    spec16, pw_variant, *args, **vkw), 1))
     if base_row is not None:
@@ -711,7 +772,7 @@ def variant_check(phase, tk, specs, pw, pw_variant, args, kw, block_tiles=1,
 
 
 def tile_split(phase, tk, spec, pw, args, kw, base_row, resident,
-               n_sm, **extra) -> dict:
+               n_sm, before_resident=None, **extra) -> dict:
     """The tile kernel's timed instantiation on one pass's inputs (f32 or
     bf16, as ``spec``):
     its output ``torch.equal`` to the untimed kernel's, then where a tile's
@@ -723,50 +784,63 @@ def tile_split(phase, tk, spec, pw, args, kw, base_row, resident,
     tiles over ``resident`` x ``n_sm`` slots), the share of tiles in the
     last wave and the share of the kernel's span after the last wave's
     first start (global timer), and the slots' fill (the tiles' summed
-    ns over slots x span)."""
+    ns over slots x span). With the baseline's timed library, its split
+    and timed ms beside (``before``, at its ``before_resident`` blocks an
+    SM)."""
     import torch
     skw = {k: kw[k] for k in ("K", "Ks", "Ksb", "Wn", "num_seek", "cut")}
-    out_t, cyc = tk.render_tiles_timed(spec, pw, *args, **skw)
+    active = args[0][:, 2] > 0
+    n_ph = len(tk.SPLIT_PHASES)
+    steps = base_row["executed_segments"] * tk.T2 * kw["Ks"] / 32
+
+    def timed():
+        return tk.render_tiles_timed(spec, pw, *args, **skw)
+
+    def split(res):
+        """The timed run's output and its cycles by phase and tile."""
+        out_t, cyc = timed()
+        c = cyc[active].double().cpu()                 # [n, 8 warps, 8]
+        ph = c[..., :n_ph].sum(dim=(0, 1))
+        total = c[..., n_ph].amax(1)                   # per tile
+        start, end = c[..., n_ph + 1].amin(1), c[..., n_ph + 2].amax(1)
+        span = float(end.max() - start.min())
+        n, slots = int(c.shape[0]), res * n_sm
+        n_last = n % slots or slots
+        last_start = float(start.sort().values[n - n_last])
+        return out_t, dict(
+            share={p: float(ph[i] / ph.sum())
+                   for i, p in enumerate(tk.SPLIT_PHASES)},
+            warp_cycles_per_sample_step={p: float(ph[i] / steps)
+                                         for i, p in enumerate(
+                                             tk.SPLIT_PHASES)},
+            phases_over_total=float(ph.sum() / c[..., n_ph].sum()),
+            tile_cycles_mean=float(total.mean()),
+            tile_cycles_max_over_mean=float(total.max() / total.mean()),
+            resident_blocks=res, slots=slots, active_tiles=n,
+            waves=n / slots, last_wave_tiles_share=n_last / n,
+            last_wave_span_share=float(end.max() - last_start) / span,
+            slot_fill=float((end - start).sum()) / (slots * span),
+            span_ms=span * 1e-6)
+
+    out_t, reading = split(resident)
     base = tk.render_tiles(spec, pw, *args, **kw)
     torch.cuda.synchronize()
     equal = bool(torch.equal(out_t, base))
-    active = args[0][:, 2] > 0
-    c = cyc[active].double().cpu()                     # [n, 8 warps, 8]
-    n_ph = len(tk.SPLIT_PHASES)
-    ph = c[..., :n_ph].sum(dim=(0, 1))
-    steps = base_row["executed_segments"] * tk.T2 * kw["Ks"] / 32
-    total = c[..., n_ph].amax(1)                       # per tile
-    start, end = c[..., n_ph + 1].amin(1), c[..., n_ph + 2].amax(1)
-    span = float(end.max() - start.min())
-    n, slots = int(c.shape[0]), resident * n_sm
-    n_last = n % slots or slots
-    last_start = float(start.sort().values[n - n_last])
     ms_u = [cuda_ms(lambda: tk.render_tiles(spec, pw, *args, **kw), 5)]
-    ms_t = [cuda_ms(lambda: tk.render_tiles_timed(spec, pw, *args,
-                                                  **skw), 5)
-            for _ in range(2)]
+    ms_t = [cuda_ms(timed, 5) for _ in range(2)]
     ms_u.append(cuda_ms(lambda: tk.render_tiles(spec, pw, *args, **kw),
                         5))
     row = dict(
         width=pw.shape[-1], dtype=spec.compute_dtype,
         mode="cut" if kw["cut"] else "deformed",
-        num_seek=kw["num_seek"], equals_untimed=equal, active_tiles=n,
-        executed_segments=base_row["executed_segments"],
-        share={p: float(ph[i] / ph.sum())
-               for i, p in enumerate(tk.SPLIT_PHASES)},
-        warp_cycles_per_sample_step={p: float(ph[i] / steps)
-                                     for i, p in enumerate(
-                                         tk.SPLIT_PHASES)},
-        phases_over_total=float(ph.sum() / c[..., n_ph].sum()),
-        tile_cycles_mean=float(total.mean()),
-        tile_cycles_max_over_mean=float(total.max() / total.mean()),
-        resident_blocks=resident, slots=slots, waves=n / slots,
-        last_wave_tiles_share=n_last / n,
-        last_wave_span_share=float(end.max() - last_start) / span,
-        slot_fill=float((end - start).sum()) / (slots * span),
-        span_ms=span * 1e-6, ms=float(np.mean(ms_u)),
-        timed_ms=float(np.mean(ms_t)), ms_reps=ms_u, timed_ms_reps=ms_t,
-        **extra)
+        num_seek=kw["num_seek"], equals_untimed=equal,
+        executed_segments=base_row["executed_segments"], **reading,
+        ms=float(np.mean(ms_u)), timed_ms=float(np.mean(ms_t)),
+        ms_reps=ms_u, timed_ms_reps=ms_t, **extra)
+    if before_resident is not None:
+        _, before = on_baseline(lambda: split(before_resident))
+        before["timed_ms"] = on_baseline(lambda: cuda_ms(timed, 5))
+        row["before"] = before
     emit(phase, **row)
     assert equal, row
     return row
@@ -2192,10 +2266,15 @@ def main() -> None:
                 r["dynamic_smem_bytes"] = fetch_smem(
                     pk.FETCHES.index(r["kernel"][:-len("_fetch")]))
     # per library: its nvcc's seconds (all start together) and its kernel
-    # entries
+    # entries; no entry may have its warpgroup MMAs serialised
+    serialized = [ln.strip() for v in rep.values()
+                  for ln in v["log"].splitlines()
+                  if WGMMA_SERIALIZED.search(ln)]
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_s={k: v["seconds"] for k, v in rep.items()},
-         entries={k: len(v) for k, v in ptxas.items()}, ptxas=ptxas)
+         entries={k: len(v) for k, v in ptxas.items()}, ptxas=ptxas,
+         wgmma_serialized=serialized)
+    assert not serialized, serialized
     if base_procs:
         finish_baseline(base_procs)
         emit("baseline", source=os.environ[BASELINE_ENV],
@@ -2261,16 +2340,18 @@ def main() -> None:
                             device=dev)
     d_mlp = (d_mlp / d_mlp.norm(dim=0, keepdim=True)).contiguous()
     for wd, weights, spec in ((64, pw, spec16), (128, pw_fill, spec16_w)):
-        ms = [cuda_ms(lambda: fk.field_eval(weights, spec, x_mlp, d_mlp),
-                      20) for _ in range(2)]
+        r_ = timed_turns(lambda: fk.field_eval(weights, spec, x_mlp, d_mlp),
+                         20, hold=field_hold(False))
         flops = 2.0 * FIELD_MACS[wd] * n_mlp
         bound = max(flops / PEAK_BF16, (FIELD_IO * n_mlp + weights.numel()
                                         * 4) / PEAK_BYTES) * 1e3
-        emit("field_mlp_bf16", width=wd, n=n_mlp, ms_reps=ms,
-             ms=float(np.mean(ms)), bound_ms=bound,
-             tflop_per_s=flops / (np.mean(ms) * 1e-3) / 1e12,
-             share_of_bf16_peak=bound / float(np.mean(ms)),
-             pr4_ms=PRIOR_FIELD_BF16_MS[wd])
+        share = {"share_of_bf16_peak": bound / r_["ms"]}
+        if "before_ms" in r_:
+            share["before_share_of_bf16_peak"] = bound / r_["before_ms"]
+        emit("field_mlp_bf16", width=wd, n=n_mlp, bound_ms=bound,
+             tflop_per_s=flops / (r_["ms"] * 1e-3) / 1e12, **r_, **share,
+             pr4_ms=PRIOR_FIELD_BF16_MS[wd], pr13_ms=PR13_MS[
+                 "field_kernel" + ("_w128" if wd == 128 else "")])
 
     # ---- the bench scene (bench.py:45-147)
     H = W = 800
@@ -2822,9 +2903,12 @@ def main() -> None:
                     block=False)
         res_t = occupancy(_build, dict(inst, timed=True))[0]
         res_u = occupancy(_build, dict(inst, timed=False))[0]
+        res_b = (on_baseline(lambda: occupancy(_build, dict(
+            inst, timed=True))[0]) if "tile_timed" in BASELINE_LIBS
+            else None)
         split_rows[mode, wd, spec.compute_dtype] = tile_split(
             "tile_split", tk, spec, weights, a_, k_, base, res_t, n_sm,
-            untimed_resident_blocks=res_u)
+            before_resident=res_b, untimed_resident_blocks=res_u)
 
     # ---- main path 2, fidelity: f32, five pushes from rest, the fused cut
     # frame against the port's cut-mode oracle over every tile that hits
@@ -3284,8 +3368,9 @@ def main() -> None:
     # cache pass and the cut frames), at each width
     def row(name, source, replaces, launches, reading, **extra):
         """One entry of the kernels line; ``library_ms`` only where one
-        PyTorch call computes the same function. Every number is this
-        run's; the earlier commits' times are on the prior_ms line."""
+        PyTorch call computes the same function; ``before_ms`` where the
+        baseline's kernel was timed in turns. Every number is this run's;
+        the earlier commits' times are on the prior_ms line."""
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": reading.get("max_abs_err",
@@ -3294,6 +3379,7 @@ def main() -> None:
                 "bound_ms": reading["bound_ms"],
                 "bound_by": reading.get("bound_by", "operations"),
                 "library_ms": reading.get("library_ms"),
+                **{k: reading[k] for k in ("before_ms",) if k in reading},
                 **extra}
 
     def bf16_field(wd):
@@ -3303,6 +3389,8 @@ def main() -> None:
         r = field_rows[wd]["bfloat16"]
         extra = ({"main_render_launches": render_launches["w64_float32"]}
                  if wd == 64 else {})
+        if "before_ms" in r:
+            extra["bf16_before_ms"] = r["before_ms"]
         return dict(bf16_launches=newton16_launches[wd], bf16_ms=r["ms"],
                     bf16_max_abs_err=r["rgb_max_abs"],
                     bf16_bound_ms=r["bound_ms"], **extra)
@@ -3422,7 +3510,7 @@ def main() -> None:
     # the earlier commits' times, constants of this file and not this
     # run's readings, on their own line beside the kernels line
     emit("prior_ms", pr4_ms=PRIOR_MS, pr4_field_bf16_ms=PRIOR_FIELD_BF16_MS,
-         pr5_ms=PR5_MS, pr6_ms=PR6_MS, pr7_ms=PR7_MS)
+         pr5_ms=PR5_MS, pr6_ms=PR6_MS, pr7_ms=PR7_MS, pr13_ms=PR13_MS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@
 // (Wd 128) per point against 40 B of I/O (x, d in; sigma, rgb out), about
 // 940 or 3,200 FLOP per byte, far above the H100's ridge in either type.
 // f32 runs the MACs as FMAs on the CUDA cores (67 TFLOP/s peak); bf16 runs
-// them on the tensor cores (989 TFLOP/s, mma_mlp.cuh).
+// them on the tensor cores (989 TFLOP/s, mma_mlp.cuh, warpgroup MMAs).
 //
 // Design: every intermediate activation stays on chip (registers and
 // shared memory); nothing but x, d and the 16 B result touches device
@@ -25,10 +25,13 @@
 //     through a cp.async double buffer. Every output is the FMA chain of
 //     field_mlp.cuh's f32 path, bit for bit.
 //   bf16, either width (field_eval_mma_kernel): every layer's bf16 weights
-//     staged once per block; each warp takes 32 consecutive points a pass,
-//     one a lane, through mma_field. The loop runs over whole warps, so the
-//     MMAs of the ragged tail's warp run converged on padding points; only
-//     the loads and stores are masked.
+//     staged once per block of 6 (Wd 64) or 4 (Wd 128) warpgroups; each
+//     warpgroup takes 128 consecutive points a pass, one a lane, through
+//     mma_field (warpgroup MMAs, a warp's row tiles one after the other:
+//     both at once hold twice the registers, and more warpgroups an SM
+//     hide the MMAs' latency better). The loop runs over whole
+//     warpgroups, so the MMAs of the ragged tail's warpgroup run converged
+//     on padding points; only the loads and stores are masked.
 
 #include <type_traits>
 
@@ -36,7 +39,11 @@
 
 namespace pienerf {
 
-constexpr int kFieldThreads = 256;     // the bf16 kernel's block
+// the bf16 kernel's block, whole warpgroups: as many as the shared memory
+// holds beside the weights (Net64 175,104 B, Net128 219,136 B) at one
+// m64 tile in flight a warpgroup, which fits the registers
+template <class N>
+constexpr int kFieldThreads = N::kWd == 64 ? 768 : 512;
 
 template <class N>
 __global__ void __launch_bounds__(kF32Threads, 1)
@@ -68,25 +75,23 @@ field_eval_f32_kernel(const float* __restrict__ x,
 }
 
 template <class N>
-__global__ void __launch_bounds__(kFieldThreads)
+__global__ void __launch_bounds__(kFieldThreads<N>)
 field_eval_mma_kernel(const float* __restrict__ x,
                       const float* __restrict__ d,
                       const float* __restrict__ pw, float* __restrict__ out,
                       int n, float bound) {
   extern __shared__ float4 smem4[];
-  uint2* sw = reinterpret_cast<uint2*>(smem4);
   uint32_t* tile = reinterpret_cast<uint32_t*>(
-      reinterpret_cast<char*>(smem4) + N::frag_bytes() +
+      reinterpret_cast<char*>(smem4) + N::mma_bytes() +
       (threadIdx.x >> 5) * kWarpTileBytes);
-  stage_mma_weights<N>(sw, pw);
+  stage_mma_weights<N>(smem4, pw);
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  uint32_t* row = tile + lane * kTileWords;
-  // warp-uniform loop over whole warps of points
-  for (int base = (blockIdx.x * warps + (threadIdx.x >> 5)) * 32; base < n;
-       base += gridDim.x * warps * 32) {
-    const int i = base + lane;
+  const int groups = blockDim.x >> 7;
+  uint32_t* row = tile + (threadIdx.x & 31) * kTileWords;
+  // warpgroup-uniform loop over whole warpgroups of points
+  for (int base = (blockIdx.x * groups + (threadIdx.x >> 7)) * 128; base < n;
+       base += gridDim.x * groups * 128) {
+    const int i = base + (threadIdx.x & 127);
     const bool live = i < n;
     float x0 = 0.f, x1 = 0.f, x2 = 0.f, d0 = 0.f, d1 = 0.f, d2 = 1.f;
     if (live) {
@@ -101,7 +106,7 @@ field_eval_mma_kernel(const float* __restrict__ x,
     sh4<true>(d0, d1, d2, sh);
     mma_stage_sh(row, sh);
     float sigma, r, g, b;
-    mma_field<N>(sw, tile, x0, x1, x2, bound, sigma, r, g, b);
+    mma_field<N, 1>(smem4, tile, x0, x1, x2, bound, sigma, r, g, b);
     if (live) {
       out[i] = sigma;
       out[n + i] = r;
@@ -118,13 +123,13 @@ cudaError_t occupancy(int* resident, int* smem_bytes) {
   using N = typename std::conditional<WIDE, Net128, Net64>::type;
   auto kern = BF16 ? field_eval_mma_kernel<N> : field_eval_f32_kernel<N>;
   const size_t smem =
-      BF16 ? mma_smem_bytes<N>(kFieldThreads) : f32_smem_bytes<N>();
+      BF16 ? mma_smem_bytes<N>(kFieldThreads<N>) : f32_smem_bytes<N>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   *smem_bytes = (int)smem;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      resident, kern, BF16 ? kFieldThreads : kF32Threads, smem);
+      resident, kern, BF16 ? kFieldThreads<N> : kF32Threads, smem);
 }
 
 template <bool BF16, bool WIDE>
@@ -134,7 +139,7 @@ cudaError_t launch(const float* x, const float* d, const float* pw,
   using N = typename std::conditional<WIDE, Net128, Net64>::type;
   auto kern = BF16 ? field_eval_mma_kernel<N> : field_eval_f32_kernel<N>;
   // points one block covers per pass of its loop
-  const int per_block = BF16 ? kFieldThreads : f32_points<N>();
+  const int per_block = BF16 ? kFieldThreads<N> : f32_points<N>();
   int per_sm = 0, smem = 0;
   cudaError_t err = occupancy<BF16, WIDE>(&per_sm, &smem);
   if (err != cudaSuccess) return err;
@@ -143,7 +148,7 @@ cudaError_t launch(const float* x, const float* d, const float* pw,
   long long grid = (long long)per_sm * n_sm;
   if (need < grid) grid = need;
   if (grid < 1) grid = 1;
-  const int threads = BF16 ? kFieldThreads : kF32Threads;
+  const int threads = BF16 ? kFieldThreads<N> : kF32Threads;
   kern<<<(int)grid, threads, smem, stream>>>(x, d, pw, out, n, bound);
   return cudaGetLastError();
 }

@@ -26,8 +26,8 @@
 // Every other f32 path of both kernels runs the same chains
 // register-blocked over a block of points (field_f32.cuh), bit for bit.
 // The bf16 instantiations of both kernels run the same net on the tensor
-// cores instead, one warp's 32 samples at a time (mma_mlp.cuh, included at
-// the end of this file).
+// cores instead, a warpgroup's 128 samples at a time (mma_mlp.cuh,
+// included at the end of this file).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,23 +63,23 @@ struct Net {
     return off(kLayers);
   }
   // the bf16 tensor-core extents (mma_mlp.cuh): layer l's inputs padded to
-  // whole k16 tiles (the encoding to 64; color layer 0 to SH(d) 16 plus
+  // whole k16 steps (the encoding to 64; color layer 0 to SH(d) 16 plus
   // the sigma head's 16 outputs, a zero row against sigma_raw) and its
-  // outputs to whole n8 tiles (the last color layer's 3 to 8). Layer l's
-  // fragment-ordered weights start at frag_off(l), in uint2 (32 a tile).
+  // outputs to an N the warpgroup MMA takes (the last color layer's 3 to
+  // 8). Layer l's staged bf16 weights start mma_off(l) bytes in.
   __host__ __device__ static constexpr int in16(int l) {
     return l == 0 ? 64 : (l == 4 ? 32 : WD);
   }
   __host__ __device__ static constexpr int out8(int l) {
     return l == 3 ? 16 : (l == 6 ? 8 : WD);
   }
-  __host__ __device__ static constexpr int frag_off(int l) {
+  __host__ __device__ static constexpr int mma_off(int l) {
     int o = 0;
-    for (int k = 0; k < l; ++k) o += in16(k) / 16 * (out8(k) / 8) * 32;
+    for (int k = 0; k < l; ++k) o += in16(k) * out8(k) * 2;
     return o;
   }
-  __host__ __device__ static constexpr size_t frag_bytes() {
-    return (size_t)frag_off(kLayers) * 8;
+  __host__ __device__ static constexpr size_t mma_bytes() {
+    return (size_t)mma_off(kLayers);
   }
   static_assert(kEnc <= 64, "the encoding fills one 64-wide k extent");
 };
@@ -318,7 +318,7 @@ __device__ __forceinline__ void encode(float x0, float x1, float x2,
 }
 
 // The bf16 tensor-core path (mma_mlp.cuh): every layer's bf16 weights in
-// fragment order, and one staging tile per warp, 32 rows (one a lane) of
+// the warpgroup MMA's B layout, and one staging tile per warp, 32 rows (one a lane) of
 // kTileWords 32-bit words: the encoding in words [0, 32), SH(d) in
 // [kTileSh, kTileSh + 8), sigma and rgb in [kTileOut, kTileOut + 2). The
 // row stride of 44 words puts row g's words 8k + t, for the 8 rows g and
@@ -329,7 +329,7 @@ constexpr int kTileOut = 40;
 constexpr size_t kWarpTileBytes = 32 * kTileWords * 4;
 template <class N>
 __host__ __device__ constexpr size_t mma_smem_bytes(int threads) {
-  return N::frag_bytes() + (size_t)(threads / 32) * kWarpTileBytes;
+  return N::mma_bytes() + (size_t)(threads / 32) * kWarpTileBytes;
 }
 
 }  // namespace pienerf

@@ -1,7 +1,8 @@
-// The tensor-core instruction, shared by the field MLP (mma_mlp.cuh) and
-// the one-hot fetch probe (probe_kernels.cu): the only place it appears,
-// so the CPU emulation (tests/test_torch_cuda_emu.py, PIENERF_EMU_MMA)
-// swaps exactly one function.
+// The warp-level tensor-core instruction of the one-hot fetch probe
+// (probe_kernels.cu; the field MLP issues warpgroup MMAs, wgmma.cuh): the
+// only place it appears, so the CPU emulation
+// (tests/test_torch_cuda_emu.py, PIENERF_EMU_MMA) swaps exactly one
+// function.
 #pragma once
 
 #include <cuda_runtime.h>

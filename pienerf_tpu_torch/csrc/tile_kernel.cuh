@@ -70,12 +70,13 @@
 // tile_kernel.py:400-410), bends them, and leaves their bent positions in
 // shared memory for the MLP loop, so that nothing of the scan is live
 // across the MLP.
-// bf16 (every mode, width and schedule): each warp runs its 32 rays'
+// bf16 (every mode, width and schedule): each warpgroup runs its 128 rays'
 // samples through the MLP on the tensor cores (mma_mlp.cuh: mma_field, or
-// mma_field_paired), every layer's bf16 weights staged once per block; the
-// sample loops are block-uniform, so every lane of a warp reaches the MMAs
-// (mma_field's own __syncwarp reconverges the warp after the per-ray
-// bending). f32, default and block_tiles schedules: the block runs one
+// mma_field_paired; warpgroup MMAs, kTileMmaTiles of each warp's two row
+// tiles in flight at a time), every layer's bf16 weights staged once per
+// block; the sample loops are block-uniform, so every thread of a
+// warpgroup reaches the MMAs (mma_field's own __syncwarp reconverges each
+// warp after the per-ray bending). f32, default and block_tiles schedules: the block runs one
 // sample of each of its 256 rays through the MLP as one register-blocked
 // pass of 256 points on the CUDA cores (f32_sample: field_f32.cuh's layers,
 // every thread a 4 x 16 tile of each hidden layer at Wd 64, 8 x 16 at Wd
@@ -104,6 +105,11 @@
 namespace pienerf {
 
 constexpr int kT2 = 256;   // rays per 16x16 tile
+// bf16: how many of each warp's two row tiles go through a layer's MMAs at
+// once (mma_mlp.cuh): at Wd 64 one, so that two blocks fit an SM (both
+// took 146-167 registers); at Wd 128, one block an SM either way, both
+template <class N>
+constexpr int kTileMmaTiles = N::kWd == 64 ? 1 : 2;
 
 __device__ __forceinline__ int floordiv(int a, int b) {
   int q = a / b;
@@ -123,8 +129,8 @@ __device__ __forceinline__ float sigmoidf(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// The block's MLP shared memory. bf16: the fragment-ordered weights and a
-// staging tile a warp. f32 paired (Net64): the compact weights and two
+// The block's MLP shared memory. bf16: the weights in the warpgroup MMA's
+// B layout and a staging tile a warp. f32 paired (Net64): the compact weights and two
 // 64-wide activation columns a thread. f32 otherwise: Net64's compact
 // weights or Net128's two streamed chunks, the [WD][kT2] activations of
 // f32_sample and its kT2 sigmas.
@@ -435,10 +441,10 @@ __device__ __forceinline__ void render_tiles_block(
       return F32Resident<N>{sw};
     }
   }();
-  // bf16: the weights in fragment order, then one staging tile a warp
-  [[maybe_unused]] uint2* swm = reinterpret_cast<uint2*>(smem4);
+  // bf16: the weights in the MMA's B layout, then one staging tile a warp
+  [[maybe_unused]] void* swm = smem4;
   [[maybe_unused]] uint32_t* wtile = reinterpret_cast<uint32_t*>(
-      reinterpret_cast<char*>(smem4) + N::frag_bytes() +
+      reinterpret_cast<char*>(smem4) + N::mma_bytes() +
       (threadIdx.x >> 5) * kWarpTileBytes);
   // bending modes only: the bent positions and found flags of up to
   // kKsbMax samples [kKsbMax, 4, kT2]; each thread's count of the window
@@ -604,11 +610,12 @@ __device__ __forceinline__ void render_tiles_block(
         clk.mark();
         float sigma, cr, cg, cb;
         if constexpr (BF16 && PAIRED) {
-          mma_field_paired<N>(swm, wtile, head_prev, xm0, xm1, xm2,
-                              bound, sigma, cr, cg, cb);
+          mma_field_paired<N, kTileMmaTiles<N>>(swm, wtile, head_prev, xm0,
+                                                xm1, xm2, bound, sigma, cr,
+                                                cg, cb);
         } else if constexpr (BF16) {
-          mma_field<N>(swm, wtile, xm0, xm1, xm2, bound, sigma, cr, cg,
-                       cb);
+          mma_field<N, kTileMmaTiles<N>>(swm, wtile, xm0, xm1, xm2, bound,
+                                         sigma, cr, cg, cb);
         } else if constexpr (PAIRED) {
           encode<false, N::kNf>(xm0, xm1, xm2, bound, colS, kT2);
           {
@@ -778,7 +785,8 @@ __device__ __forceinline__ void render_tiles_block(
         // executed segment's rgb sums
         float c3[3];
         if constexpr (BF16) {
-          mma_color_drain<N>(swm, wtile, head_prev, c3[0], c3[1], c3[2]);
+          mma_color_drain<N, kTileMmaTiles<N>>(swm, wtile, head_prev, c3[0],
+                                               c3[1], c3[2]);
         } else {
           hidden<31, N::kWd>(sw + N::off(4), colC, colS, kT2);
           hidden<N::kWd, N::kWd>(sw + N::off(5), colS, colC, kT2);

@@ -7,10 +7,13 @@ fiber per CUDA thread of a block, all on one host thread, switched at
 is held against the plain PyTorch version on small inputs: the field
 kernel, the tile kernel in every mode and schedule (default, paired,
 ``block_tiles``), f32 and bf16, the four fetch probes and the shell. The
-tensor-core instruction of the bf16 instantiations and of the one-hot
-fetch (``mma.cuh:mma_bf16_16816``) is emulated at a warp barrier from the
-32 lanes' fragments: bf16 products exact in f32, added to the accumulator
-one by one in increasing k. The bulk copies and mbarriers of the dma fetch
+one-hot fetch's tensor-core instruction (``mma.cuh:mma_bf16_16816``) is
+emulated at a warp barrier from the 32 lanes' fragments, and the bf16
+MLP's warpgroup MMA (``wgmma.cuh``) at a warpgroup barrier from the 128
+threads' fragments, B read from shared memory through its descriptor,
+the accumulators NaN until the ``wait_group`` that retires them: bf16
+products exact in f32, added to the accumulator one by one in increasing
+k. The bulk copies and mbarriers of the dma fetch
 (``bulk.cuh``) are emulated as late as they may land: a bulk load is
 recorded on its mbarrier and lands only when a wait on its phase
 completes; a bulk store reads shared memory at the ``bulk_wait_read`` that
@@ -22,8 +25,10 @@ field and tile kernels are also held bit for bit against the per-point FMA
 chains their register-blocked MLP replaced (``PER_POINT_CUH``, through
 ``FIELD_REF_CU`` and ``TILE_REF_CU``). The fibers run in a fixed order
 that reverses from pass to pass, so a missing barrier shows on every run.
-This checks the kernels' indexing, barriers and control flow; the card's
-compiler, timing and rounding are checked by ``chip_smoke.py``."""
+A block whose threads all wait (a warpgroup a warp short at its MMA,
+say) fails its launch, where a card would hang. This checks the kernels'
+indexing, barriers and control flow; the card's compiler, timing and
+rounding are checked by ``chip_smoke.py``."""
 
 import ctypes
 import ctypes.util
@@ -68,6 +73,7 @@ CUDA_RUNTIME_H = r"""
 #include <ucontext.h>
 #define PIENERF_EMU_MMA 1
 #define PIENERF_EMU_BULK 1
+#define PIENERF_EMU_WGMMA 1
 #define PIENERF_EMU_CLOCK 1
 #define __global__
 #define __device__
@@ -113,9 +119,9 @@ inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 // or the other. The last member to arrive at a barrier runs its completion
 // step, if any, and releases the others. A fiber that waits on an
 // mbarrier phase yields until the phase completes. A pass in which every
-// unfinished thread waits is a deadlock (threads of a block or a warp at
-// different barriers, or on a phase that never completes): the emulation
-// aborts.
+// unfinished thread waits is a deadlock (threads of a block, a warp or a
+// warpgroup at different barriers, or on a phase that never completes),
+// where a card would hang: the launch fails.
 struct EmuBarrier {
   int expected = 0, count = 0;
   unsigned gen = 0;
@@ -144,6 +150,12 @@ struct EmuStore {
   const void* src;
   size_t n;
 };
+// a warpgroup MMA's result in flight to a thread's accumulator registers
+struct EmuAcc {
+  float* dst;                               // the thread's registers
+  int n;
+  float v[64];
+};
 struct EmuFiber {
   ucontext_t start;                         // its first entry
   jmp_buf env;                              // where it waits
@@ -155,12 +167,16 @@ struct EmuFiber {
   int gen = 0;                              // __syncthreads_or's slot
   std::vector<EmuStore> open;               // the open bulk group
   std::vector<std::vector<EmuStore>> groups;  // committed, oldest first
+  bool wg_fenced = false;                   // a wgmma.fence since its wait
+  std::vector<EmuAcc> wg_open;       // products in flight, uncommitted
+  std::vector<std::vector<EmuAcc>> wg_groups;  // committed
 };
 inline jmp_buf emu_sched;
 inline std::vector<EmuFiber> emu_fibers;
 inline std::function<void()> emu_body;
 inline EmuBarrier emu_block_bar;
 inline EmuBarrier emu_warp_bar[32];
+inline EmuBarrier emu_wg_bar[8];
 inline int emu_or[2];
 template <class Step>
 inline void emu_arrive_and_wait(EmuBarrier& b, Step step) {
@@ -325,7 +341,11 @@ inline int __syncthreads_or(int p) {
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchFailure = 719
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 typedef struct CUstream_st* cudaStream_t;
 constexpr size_t kEmuSmem = 232448;          // an H100 block's limit
@@ -347,6 +367,150 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
   return cudaSuccess;
 }
 namespace pienerf { extern float4 smem4[]; }
+// wgmma.mma_async m64nNk16 .bf16 -> .f32, A from registers, B through a
+// shared-memory descriptor (wgmma.cuh): each of a warpgroup's 128 threads
+// stages its A fragment and accumulators and arrives at the warpgroup's
+// barrier, whose completion step (all 128 arrived) computes every
+// thread's D, reading B from shared memory by decoding the descriptor.
+// A product is in flight until the wait_group that retires its commit
+// group: till then its accumulator registers read as NaN, and a later
+// product into the same registers chains from it. The completion step
+// lands NaN for a product it refuses: threads that differ in N,
+// descriptor or scale-d, one without a wgmma.fence since its last wait,
+// a descriptor with a swizzle or a base offset, or B outside shared
+// memory.
+struct EmuWgThread {
+  uint32_t a[4];
+  float c[64];
+  int n;                                    // accumulator registers
+  uint64_t desc;
+  int scale_d;
+  bool fenced;
+};
+struct EmuWarpgroup {
+  EmuWgThread t[128];
+  float d[128][64];
+};
+inline EmuWarpgroup emu_wg[8];
+inline uint32_t emu_smem_addr(const void* p) {
+  return (uint32_t)((const char*)p - (const char*)pienerf::smem4);
+}
+struct EmuWgStep {
+  EmuWarpgroup* g;
+  void operator()() noexcept {
+    const EmuWgThread& t0 = g->t[0];
+    const int n = 2 * t0.n;                 // columns
+    bool ok = t0.n > 0 && t0.n <= 64;
+    for (const EmuWgThread& t : g->t) {
+      ok = ok && t.fenced && t.n == t0.n && t.desc == t0.desc &&
+           t.scale_d == t0.scale_d;
+    }
+    // the descriptor: start address, lbo and sbo (each >> 4), nothing else
+    const uint64_t fields = 0x3fffull | 0x3fffull << 16 | 0x3fffull << 32;
+    ok = ok && (t0.desc & ~fields) == 0;
+    const size_t start = (t0.desc & 0x3fff) << 4;
+    const size_t lbo = ((t0.desc >> 16) & 0x3fff) << 4;
+    const size_t sbo = ((t0.desc >> 32) & 0x3fff) << 4;
+    // B [16][n], K-major without swizzle: core matrix (k / 8, col / 8) at
+    // (k / 8) lbo + (col / 8) sbo, column col's 8 k values a 16-byte row
+    float B[16][128] = {};
+    for (int k = 0; ok && k < 16; ++k) {
+      for (int col = 0; col < n; ++col) {
+        const size_t off = start + (k / 8) * lbo + (col / 8) * sbo +
+                           (col % 8) * 16 + (k % 8) * 2;
+        if (off + 2 > kEmuSmem) {
+          ok = false;
+          break;
+        }
+        uint16_t h;
+        std::memcpy(&h, (const char*)pienerf::smem4 + off, 2);
+        B[k][col] = emu_bf16(h, 0);
+      }
+    }
+    // warp q holds rows 16 q .. 16 q + 15 in mma.sync's A layout (lane
+    // 4 g + t, register r: row g + 8 (r % 2), columns 2 t + 8 (r / 2) and
+    // the next); D register i of lane 4 g + t: row g + 8 (i % 4 / 2),
+    // column 8 (i / 4) + 2 t + i % 2
+    float A[64][16];
+    for (int th = 0; th < 128; ++th) {
+      const int row = 16 * (th / 32) + (th % 32) / 4, t = th % 4;
+      for (int r = 0; r < 4; ++r) {
+        for (int h = 0; h < 2; ++h) {
+          A[row + 8 * (r % 2)][2 * t + 8 * (r / 2) + h] =
+              emu_bf16(g->t[th].a[r], h);
+        }
+      }
+    }
+    for (int th = 0; th < 128; ++th) {
+      const int row = 16 * (th / 32) + (th % 32) / 4, t = th % 4;
+      for (int i = 0; i < t0.n && ok; ++i) {
+        const float* a = A[row + 8 * (i % 4 / 2)];
+        const int col = 8 * (i / 4) + 2 * t + i % 2;
+        float s = g->t[th].scale_d ? g->t[th].c[i] : 0.f;
+        for (int k = 0; k < 16; ++k) s = s + a[k] * B[k][col];
+        g->d[th][i] = s;
+      }
+      for (int i = 0; i < 64 && !ok; ++i) g->d[th][i] = NAN;
+    }
+  }
+};
+inline void emu_wg_fence() { emu_fibers[threadIdx.x].wg_fenced = true; }
+// cvt.rn.relu.bf16x2.f32 d, a, b: a to the high half, b to the low, each
+// rounded to bf16, a negative result clamped to +0, a NaN canonical
+inline uint32_t emu_cvt_rn_relu_bf16x2(float a, float b) {
+  auto one = [](float f) -> uint32_t {
+    if (std::isnan(f)) return 0x7fffu;
+    uint32_t u;
+    std::memcpy(&u, &f, 4);
+    u += 0x7fffu + ((u >> 16) & 1u);
+    return (u & 0x80000000u) ? 0u : u >> 16;
+  };
+  return one(a) << 16 | one(b);
+}
+inline void emu_wgmma_bf16(float* d, int n, const uint32_t* a,
+                           uint64_t desc, int scale_d) {
+  EmuFiber& f = emu_fibers[threadIdx.x];
+  EmuWarpgroup& g = emu_wg[threadIdx.x / 128];
+  const int me = threadIdx.x % 128, regs = n / 2;
+  EmuWgThread& t = g.t[me];
+  std::memcpy(t.a, a, 16);
+  t.n = regs;
+  t.desc = desc;
+  t.scale_d = scale_d;
+  t.fenced = f.wg_fenced;
+  if (scale_d) {                      // C: the product in flight, if any
+    const float* c = d;
+    for (auto it = f.wg_open.rbegin(); it != f.wg_open.rend(); ++it) {
+      if (it->dst == d) { c = it->v; break; }
+    }
+    for (auto g_ = f.wg_groups.rbegin(); c == d && g_ != f.wg_groups.rend();
+         ++g_) {
+      for (auto it = g_->rbegin(); it != g_->rend(); ++it) {
+        if (it->dst == d) { c = it->v; break; }
+      }
+    }
+    std::memcpy(t.c, c, regs * 4);
+  }
+  emu_arrive_and_wait(emu_wg_bar[threadIdx.x / 128], EmuWgStep{&g});
+  EmuAcc acc{d, regs, {}};
+  std::memcpy(acc.v, g.d[me], regs * 4);
+  f.wg_open.push_back(acc);
+  for (int i = 0; i < regs; ++i) d[i] = NAN;  // in flight
+}
+inline void emu_wg_commit() {
+  EmuFiber& f = emu_fibers[threadIdx.x];
+  f.wg_groups.push_back(std::move(f.wg_open));
+  f.wg_open.clear();
+}
+inline void emu_wg_wait(int k) {
+  EmuFiber& f = emu_fibers[threadIdx.x];
+  while (f.wg_groups.size() > (size_t)k) {
+    for (const EmuAcc& acc : f.wg_groups.front())
+      std::memcpy(acc.dst, acc.v, acc.n * 4);
+    f.wg_groups.erase(f.wg_groups.begin());
+  }
+  f.wg_fenced = false;
+}
 inline void emu_fiber_entry() {
   emu_body();
   emu_bulk_commit();                        // what is left reads now
@@ -370,6 +534,7 @@ void emu_launch(K k, long long grid, int threads, size_t smem, cudaStream_t,
     emu_block_bar = EmuBarrier{threads};
     for (int w = 0; w < (threads + 31) / 32; ++w)
       emu_warp_bar[w] = EmuBarrier{std::min(32, threads - 32 * w)};
+    for (EmuBarrier& wg : emu_wg_bar) wg = EmuBarrier{128};
     emu_or[0] = emu_or[1] = 0;
     emu_fibers.assign(threads, EmuFiber{});
     for (int t = 0; t < threads; ++t) {
@@ -402,7 +567,8 @@ void emu_launch(K k, long long grid, int threads, size_t smem, cudaStream_t,
       if (!ran) {
         std::fprintf(stderr, "emulated block %lld: deadlock at a barrier "
                      "or an mbarrier phase\n", b);
-        std::abort();
+        emu_err = cudaErrorLaunchFailure;
+        return;
       }
     }
   }
@@ -692,6 +858,117 @@ extern "C" int bulk_store_overwrite(const float* row, float* out,
 """
 
 
+# Two kernels of the emulated warpgroup MMA (wgmma.cuh) and the bf16 MLP's
+# weight staging. read_back: one warpgroup stages a net's weights as the
+# kernels do (stage_mma_weights, or stage_mma_weights_paired from the
+# paired pack) and reads every layer back through its descriptor: for each
+# k16 step, A selects row r % 16 of the step for row r, so warp 0's 16
+# rows of D are the step's 16 rows of B, written to out[l] [in16, out8]
+# (rows and columns of stride 128). wg_fault: the same selector against a
+# [16 x 64] B staged from w, warp 0's D to out [16, 64]; `fault` breaks
+# one rule: 1 stages B row-major instead of the MMA's layout, 2 reads the
+# accumulators before wait_group, 3 leaves warp 3 out of the MMA, 4
+# issues it without a wgmma.fence.
+WGMMA_REF_CU = r"""
+#include "field_mlp.cuh"
+namespace pienerf {
+// lane 4 g + t: row g picks column g, row g + 8 column g + 8
+__device__ void selector(uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  a[0] = a[3] = pack_bf16x2(g == 2 * t, g == 2 * t + 1);
+  a[1] = a[2] = 0u;
+}
+// warp 0's rows of D (lane 4 g + t, register i: row g + 8 (i % 4 / 2),
+// column 8 (i / 4) + 2 t + i % 2) into out, row stride `ld`
+template <int T>
+__device__ void put_rows(const float (&acc)[T][4], float* out, int ld) {
+  if (threadIdx.x >= 32) return;
+  const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
+  for (int j = 0; j < T; ++j) {
+    for (int i = 0; i < 4; ++i) {
+      out[(g + 8 * (i / 2)) * ld + 8 * j + 2 * t + i % 2] = acc[j][i];
+    }
+  }
+}
+template <class N, int L>
+__device__ void read_layer(uint64_t d0, float* out) {
+  constexpr int NO = N::out8(L);
+  uint32_t a[4];
+  selector(a);
+  for (int kt = 0; kt < N::in16(L) / 16; ++kt) {
+    float acc[NO / 8][4];
+    wg_fence();
+    wgmma_bf16<NO>(acc, a, layer_desc<N>(d0, L) + 2 * NO * kt, 0);
+    wg_commit();
+    wg_wait<0>();
+    wg_fence_operand(acc);
+    put_rows(acc, out + (L * 128 + 16 * kt) * 128, 128);
+  }
+}
+template <class N, bool PAIRED>
+__global__ void read_back(const float* pw, float* out) {
+  if constexpr (PAIRED) {
+    stage_mma_weights_paired<N>(smem4, pw);
+  } else {
+    stage_mma_weights<N>(smem4, pw);
+  }
+  __syncthreads();
+  const uint64_t d0 = wg_desc(smem4, kLbo, kSbo);
+  read_layer<N, 0>(d0, out);
+  read_layer<N, 1>(d0, out);
+  read_layer<N, 2>(d0, out);
+  read_layer<N, 3>(d0, out);
+  read_layer<N, 4>(d0, out);
+  read_layer<N, 5>(d0, out);
+  read_layer<N, 6>(d0, out);
+}
+__global__ void wg_fault(const float* w, float* out, int fault) {
+  char* b = reinterpret_cast<char*>(smem4);
+  for (int e = threadIdx.x; e < 16 * 64; e += blockDim.x) {
+    const int k = e / 64, n = e % 64;
+    const int off = fault == 1 ? 2 * e
+                               : (n / 8) * kSbo + (k / 8) * kLbo +
+                                     (n % 8) * 16 + (k % 8) * 2;
+    *reinterpret_cast<__nv_bfloat16*>(b + off) = __float2bfloat16_rn(w[e]);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (fault == 3 && threadIdx.x >= 96) return;
+  uint32_t a[4];
+  selector(a);
+  float acc[8][4];
+  if (fault != 4) wg_fence();
+  wgmma_bf16<64>(acc, a, wg_desc(smem4, kLbo, kSbo), 0);
+  wg_commit();
+  if (fault == 2) put_rows(acc, out, 64);
+  wg_wait<0>();
+  wg_fence_operand(acc);
+  if (fault != 2) put_rows(acc, out, 64);
+}
+}  // namespace pienerf
+extern "C" int wg_read_back(const float* pw, float* out, int wd,
+                            int paired) {
+  using namespace pienerf;
+  const cudaStream_t st = nullptr;
+  if (wd == 128) {
+    emu_launch(read_back<Net128, false>, 1, 128, Net128::mma_bytes(), st, pw,
+               out);
+  } else if (paired) {
+    emu_launch(read_back<Net64, true>, 1, 128, Net64::mma_bytes(), st, pw,
+               out);
+  } else {
+    emu_launch(read_back<Net64, false>, 1, 128, Net64::mma_bytes(), st, pw,
+               out);
+  }
+  return (int)cudaGetLastError();
+}
+extern "C" int wg_fault_run(const float* w, float* out, int fault) {
+  emu_launch(pienerf::wg_fault, 1, 128, 16 * 64 * 2, (cudaStream_t)nullptr,
+             w, out, fault);
+  return (int)cudaGetLastError();
+}
+"""
+
 # The tile kernel as it was before the one-pass window scan: per sample,
 # num_seek argmin passes over the staged window's rows (each row tested
 # against [rlo, rhi), its validity and the rows already taken), the window
@@ -716,10 +993,10 @@ render_tiles_ref(const float* __restrict__ tile_sc,
   float* sw = reinterpret_cast<float*>(smem4);      // weights
   [[maybe_unused]] float* buf =                     // f32 activations
       sw + (kWide ? N::kWd * N::kWd : N::wfloats());
-  // bf16: the weights in fragment order, then one staging tile a warp
-  [[maybe_unused]] uint2* swm = reinterpret_cast<uint2*>(smem4);
+  // bf16: the weights in the MMA's B layout, then one staging tile a warp
+  [[maybe_unused]] void* swm = smem4;
   [[maybe_unused]] uint32_t* wtile = reinterpret_cast<uint32_t*>(
-      reinterpret_cast<char*>(smem4) + N::frag_bytes() +
+      reinterpret_cast<char*>(smem4) + N::mma_bytes() +
       (threadIdx.x >> 5) * kWarpTileBytes);
   float* win = reinterpret_cast<float*>(  // [Wn, 16], bending modes only
       reinterpret_cast<char*>(smem4) + ref_mlp_bytes<BF16, N>());
@@ -943,11 +1220,12 @@ render_tiles_ref(const float* __restrict__ tile_sc,
           // with PAIRED the pending sample's
           float sigma, cr, cg, cb;
           if constexpr (BF16 && PAIRED) {
-            mma_field_paired<N>(swm, wtile, head_prev, xm0, xm1, xm2, bound,
-                                sigma, cr, cg, cb);
+            mma_field_paired<N, kTileMmaTiles<N>>(swm, wtile, head_prev, xm0,
+                                                  xm1, xm2, bound, sigma, cr,
+                                                  cg, cb);
           } else if constexpr (BF16) {
-            mma_field<N>(swm, wtile, xm0, xm1, xm2, bound, sigma, cr, cg,
-                         cb);
+            mma_field<N, kTileMmaTiles<N>>(swm, wtile, xm0, xm1, xm2, bound,
+                                           sigma, cr, cg, cb);
           } else if constexpr (kWide) {
             // rays [128 h, 128 h + 128) own the samples of pass h
             for (int h = 0; h < 2; ++h) {
@@ -1044,7 +1322,8 @@ render_tiles_ref(const float* __restrict__ tile_sc,
         // executed segment's rgb sums
         float c3[3];
         if constexpr (BF16) {
-          mma_color_drain<N>(swm, wtile, head_prev, c3[0], c3[1], c3[2]);
+          mma_color_drain<N, kTileMmaTiles<N>>(swm, wtile, head_prev, c3[0],
+                                               c3[1], c3[2]);
         } else {
           hidden<31, N::kWd>(sw + N::off(4), colC, colS, kT2);
           hidden<N::kWd, N::kWd>(sw + N::off(5), colS, colC, kT2);
@@ -1200,7 +1479,7 @@ def libs(tmp_path_factory):
         (d / src.replace(".cu", ".cpp") if src.endswith(".cu")
          else d / src).write_text(code)
     tests_cu = {"field_ref": FIELD_REF_CU, "mbar_ref": MBAR_REF_CU,
-                "tile_ref": TILE_REF_CU}
+                "tile_ref": TILE_REF_CU, "wgmma_ref": WGMMA_REF_CU}
     for name, code in tests_cu.items():
         (d / f"{name}.cpp").write_text(emulated(code))
     procs = {}
@@ -1442,6 +1721,78 @@ def test_emulated_mma_routing_is_exact(libs, wd):
         np.testing.assert_array_equal(
             out[1:], np.float32(1) / (np.float32(1) + _libm("expf", -c_pre)))
 
+
+def _staged_layers(flat, enc_dim):
+    """What stage_mma_weights stages from the pack ``flat`` [7, Wd, Wd]:
+    layer l as [in16, out8] bf16 values, zero past its real extent, color
+    layer 0's rows 16..30 moved to 17..31 behind a zero row."""
+    wd = flat.shape[-1]
+    ins = [enc_dim, wd, wd, wd, 31, wd, wd]
+    outs = [wd, wd, wd, 16, wd, wd, 4]
+    in16 = [64, wd, wd, wd, 32, wd, wd]
+    out8 = [wd, wd, wd, 16, wd, wd, 8]
+    w = flat.bfloat16().float().numpy()
+    layers = []
+    for li in range(7):
+        e = np.zeros((in16[li], out8[li]), np.float32)
+        blk = w[li, :ins[li], :outs[li]]
+        if li == 4:
+            e[:16, :outs[li]] = blk[:16]
+            e[17:32, :outs[li]] = blk[16:]
+        else:
+            e[:ins[li], :outs[li]] = blk
+        layers.append(e)
+    return layers
+
+
+@pytest.mark.parametrize("wd,paired", [(64, False), (128, False),
+                                       (64, True)])
+def test_emulated_wgmma_reads_back_every_staged_layer(libs, wd, paired):
+    """Every layer of Net64 and Net128 (and Net64 from the paired pack),
+    staged as the bf16 kernels stage it and read back through the
+    emulated descriptor one k16 step at a time, equals its weight block in
+    bf16 with the kernels' zero padding and color layer 0's shifted rows:
+    the staged layout and the descriptor's strides agree."""
+    spec = _spec(wd)
+    field = tnet.FieldMLP(spec, generator=torch.Generator().manual_seed(21))
+    flat = tfk.pack_weights(field, spec, CPU)
+    pw = tfk.pack_weights_paired(field, spec, CPU) if paired else flat
+    out = np.full((7, 128, 128), np.nan, np.float32)
+    fn = libs["wgmma_ref"].wg_read_back
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    assert fn(_ptr(pw.numpy()), _ptr(out), wd, int(paired)) == 0
+    enc_dim = 3 * (1 + 2 * spec.n_freqs)
+    for li, e in enumerate(_staged_layers(flat, enc_dim)):
+        got = out[li, :e.shape[0], :e.shape[1]]
+        assert (e != 0).mean() > 0.2
+        np.testing.assert_array_equal(got, e, err_msg=f"layer {li}")
+
+
+@pytest.mark.parametrize("fault", ["none", "misstaged", "read_before_wait",
+                                   "missing_warp", "no_fence"])
+def test_emulated_wgmma_fault_gives_wrong_or_poisoned_result(libs, fault):
+    """The emulation can fail the warpgroup MMA's rules: with B staged as
+    the MMA's layout and every rule kept, warp 0 reads B back exactly;
+    B staged row-major (a mis-staged layout) reads back wrong; the
+    accumulators read before wait_group are NaN; a warpgroup one warp
+    short deadlocks at the MMA, where a card would hang, and the launch
+    fails with nothing written; an MMA without a wgmma.fence lands NaN."""
+    w = np.random.RandomState(22).randn(16, 64).astype(np.float32)
+    ref = torch.from_numpy(w).bfloat16().float().numpy()
+    out = np.full((16, 64), np.nan, np.float32)
+    fn = libs["wgmma_ref"].wg_fault_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    rc = fn(_ptr(w), _ptr(out), ["none", "misstaged", "read_before_wait",
+                                 "missing_warp", "no_fence"].index(fault))
+    assert rc == (0 if fault != "missing_warp" else 719)
+    if fault == "none":
+        np.testing.assert_array_equal(out, ref)
+    elif fault == "misstaged":
+        assert np.isfinite(out).all() and (out != ref).mean() > 0.5
+    else:
+        assert np.isnan(out).all()
 
 def _tile_run(libs, spec, pw, args, kw, block_tiles=1, timed=False):
     """The emulated tile kernel as ``kernels.tile.render_tiles`` launches
