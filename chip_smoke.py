@@ -265,12 +265,14 @@ def cuda_ms(fn, reps):
 
 def frame_profile(prof, n_frames: int, ms_per_frame: float) -> dict:
     """Per-frame times from a torch.profiler run of ``n_frames`` chained
-    frames: host ms and device ms of pipeline.py's ``frame.*`` ranges, the
-    device's busy ms (union of its kernel and copy spans), the tile
-    kernel's device ms, and the idle share of the unprofiled frame. A
-    range's device ms counts the kernels of the torch ops inside it; the
-    profiler links no op to the tile kernel's ctypes launch, so the tile
-    kernel is counted on its own and not in ``frame.render``."""
+    frames: host ms and device ms of the port's ``frame.*`` spans
+    (``pienerf_tpu_torch/utils/trace.py``: ``frame.sim``,
+    ``frame.ip_info``, ``frame.ip_pack``, ``frame.render`` and the spans
+    inside it), the device's busy ms (union of its kernel and copy spans),
+    the tile kernel's device ms, and the idle share of the unprofiled
+    frame. A span's device ms counts the kernels linked to the ops and
+    spans inside it; the tile kernel is also counted on its own, by
+    name."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
     host, dev_ms, spans, tile_us = {}, {}, [], 0.0
@@ -2408,7 +2410,7 @@ def main() -> None:
         """Main path 1 with these settings and weights: 20 chained frames
         with the launch counts read around them, then n_reps x 10 timed
         frames and n_prof under torch.profiler (where a frame's time goes: the stages
-        are pipeline.py's named ranges). Returns (frame-0 state, frame-0
+        are the port's frame.* spans). Returns (frame-0 state, frame-0
         counters, launches, and frame 0's image with the median ms per
         frame and the tile kernel's device ms per frame)."""
         reset_counts()

@@ -34,6 +34,7 @@ from pienerf_tpu_torch.kernels.field import (WIDTHS, check_aligned,
                                              mlp_paired_plain, mlp_plain)
 from pienerf_tpu_torch.models.network import NetworkSpec, torch_dtype
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
+from pienerf_tpu_torch.utils.trace import FRAME_TILE_LAUNCH, span
 
 T2 = 256          # rays per 16x16 tile
 PACK_FAST = 16    # candidate rows: p_def(3) p_ori(3) F^-1(9) valid(1)
@@ -428,7 +429,9 @@ def render_tiles(
     counts as paired). ``paired`` None infers the
     pairing from the pack; ``block_tiles`` B > 1 renders B tiles per thread
     block, A padded to a multiple of B with inactive slots and the output
-    cut back to A."""
+    cut back to A. Under ``torch.profiler`` the CUDA branch (argument
+    checks and the ctypes launch) is the ``frame.tile_launch`` span, which
+    the launched kernel links to."""
     _check_shapes(cand, bin_start, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn,
                   num_seek=num_seek, block_tiles=block_tiles)
     B = int(block_tiles)
@@ -438,18 +441,19 @@ def render_tiles(
         return render_tiles_plain(spec, packed_w, tile_sc, bin_start, params,
                                   dirs, cand, **kw, paired=paired,
                                   block_tiles=B)
-    mode = mode_of(deformed, cut)
-    wd = check_kernel_spec(spec, packed_w, allow_paired=True)
-    paired = _resolve_paired(spec, packed_w, paired)
-    # the paired and the block_tiles instantiations are libraries of their
-    # own (one nvcc each, side by side)
-    name = "tile_paired" if paired else "tile_block" if B > 1 else "tile"
-    out = _launch(name, "pienerf_render_" + name.replace("tile", "tiles"),
-                  spec, packed_w, tile_sc, bin_start, params, dirs, cand, B,
-                  paired, wd, None, **kw)
-    render_tiles.launches[launch_key(mode, wd, paired, B,
-                                     spec.compute_dtype)] += 1
-    return out
+    with span(FRAME_TILE_LAUNCH):
+        mode = mode_of(deformed, cut)
+        wd = check_kernel_spec(spec, packed_w, allow_paired=True)
+        paired = _resolve_paired(spec, packed_w, paired)
+        # the paired and the block_tiles instantiations are libraries of
+        # their own (one nvcc each, side by side)
+        name = "tile_paired" if paired else "tile_block" if B > 1 else "tile"
+        out = _launch(name, "pienerf_render_" + name.replace("tile", "tiles"),
+                      spec, packed_w, tile_sc, bin_start, params, dirs, cand,
+                      B, paired, wd, None, **kw)
+        render_tiles.launches[launch_key(mode, wd, paired, B,
+                                         spec.compute_dtype)] += 1
+        return out
 
 
 def render_tiles_timed(

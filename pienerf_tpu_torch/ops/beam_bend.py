@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from pienerf_tpu_torch.ops.bending import _inv3x3
+from pienerf_tpu_torch.utils.trace import FRAME_IP_PACK, span
 
 PACK = 48          # p_def(3) p_ori(3) F(9) dF(27) pad(5) valid(1)
 PACK_FAST = 16     # p_def(3) p_ori(3) F^-1(9, row-major) valid(1)
@@ -72,12 +73,13 @@ def pack_ip_data_fast(p_def: torch.Tensor, p_ori: torch.Tensor,
     """[nIP, 16] rows for the single-Newton-step path, where the Newton
     solve is exactly p_rest = p_ori + F^-1 (x - p_def); F is inverted once
     per frame per IP. ``dF`` is unused (its terms vanish at q = 0)."""
-    n = p_def.shape[0]
-    Finv, ok = _inv3x3(F)
-    return torch.cat([
-        p_def, p_ori, Finv.reshape(n, 9),
-        ok.to(p_def.dtype)[:, None],                 # last slot: validity
-    ], dim=1)
+    with span(FRAME_IP_PACK):
+        n = p_def.shape[0]
+        Finv, ok = _inv3x3(F)
+        return torch.cat([
+            p_def, p_ori, Finv.reshape(n, 9),
+            ok.to(p_def.dtype)[:, None],             # last slot: validity
+        ], dim=1)
 
 
 def pack_for(settings: BeamBendSettings, p_def, p_ori, F, dF

@@ -10,7 +10,10 @@ exact-bending oracle. Either kernel width (64 or the 128-wide student)
 follows from the packed weights, and so does the fused frame's paired
 schedule (``kernels.field.pack_weights_paired``); ``block_tiles`` sets its
 tiles per thread block. Every tensor stays on the device of the
-pose.
+pose. Under ``torch.profiler`` the fused frame records its stages as spans
+(``utils/trace.py``): ``frame.render`` around it, and inside that
+``frame.render.activity``, ``frame.render.prep`` once a tile pass and
+``frame.render.scatter``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ from pienerf_tpu_torch.kernels import tile as tile_kernel
 from pienerf_tpu_torch.models.network import NetworkSpec
 from pienerf_tpu_torch.ops import beam_bend
 from pienerf_tpu_torch.ops.bending import newton_invert
+from pienerf_tpu_torch.utils.trace import (FRAME_RENDER,
+                                          FRAME_RENDER_ACTIVITY,
+                                          FRAME_RENDER_PREP,
+                                          FRAME_RENDER_SCATTER, span)
 
 
 class InteractiveSettings(NamedTuple):
@@ -190,71 +197,72 @@ def tile_kernel_inputs(st, ip_pack, p_def, o, pose, intrinsics, H, W,
     (args, kw, dropped_beam): ``args`` = (tile_sc, bin_start, params, dirs,
     cand) and ``kw`` the kernel's static sizes and mode, as
     ``kernels.tile.render_tiles`` takes them."""
-    dev = o.device
-    ts = st.tile
-    T2 = ts * ts
-    K = st.samples
-    a_cap = act_ids.shape[0]
+    with span(FRAME_RENDER_PREP):
+        dev = o.device
+        ts = st.tile
+        T2 = ts * ts
+        K = st.samples
+        a_cap = act_ids.shape[0]
 
-    o_, d = _tile_rays(act_ids, st, H, W, pose, intrinsics)
-    near, far = _near_far(o_, d, bbmin, bbmax, st.min_near)
-    t0, t1, any_hit = _tile_span(near, far, act_mask)
+        o_, d = _tile_rays(act_ids, st, H, W, pose, intrinsics)
+        near, far = _near_far(o_, d, bbmin, bbmax, st.min_near)
+        t0, t1, any_hit = _tile_span(near, far, act_mask)
 
-    dirs = torch.zeros((a_cap, 8, T2), dtype=torch.float32, device=dev)
-    for i in range(3):
-        dirs[:, i, :] = d[i]
+        dirs = torch.zeros((a_cap, 8, T2), dtype=torch.float32, device=dev)
+        for i in range(3):
+            dirs[:, i, :] = d[i]
 
-    if deformed:
-        axis = _central_axis(d)
-        origin = o.expand(a_cap, 3)
-        tan_half = torch.full((a_cap,), ts * 0.75 / intrinsics[0],
-                              dtype=torch.float32, device=dev)
-        # cut mode marches the full range (outside the cut box renders the
-        # static scene); the crop margin exceeds the bend reach so
-        # tightening stays lossless
-        tmarg = (max(3.0 * st.bend.ip_dx,
-                     beam_bend.reach_of(st.bend) + st.bend.ip_dx)
-                 if st.tighten_sampling and not cut else 0.0)
-        cand, bin_start, n_drop_beam, t0, t1 = tile_kernel.prep_candidates(
-            ip_pack, p_def, origin, axis, tan_half, t0, t1,
-            n_cand=st.bend.ips_per_tile, n_bins=K + 2,
-            beam_margin=beam_bend.margin_of(st.bend), tighten_margin=tmarg)
-        dropped_beam = torch.where(act_mask, n_drop_beam, 0).sum()
-    else:
-        cand = torch.zeros((a_cap, max(st.bend.ips_per_tile, 64),
-                            tile_kernel.PACK_FAST), dtype=torch.float32,
-                           device=dev)
-        bin_start = torch.zeros((a_cap, K + 4), dtype=torch.int32,
-                                device=dev)
-        dropped_beam = torch.zeros((), dtype=torch.int64, device=dev)
+        if deformed:
+            axis = _central_axis(d)
+            origin = o.expand(a_cap, 3)
+            tan_half = torch.full((a_cap,), ts * 0.75 / intrinsics[0],
+                                  dtype=torch.float32, device=dev)
+            # cut mode marches the full range (outside the cut box renders
+            # the static scene); the crop margin exceeds the bend reach so
+            # tightening stays lossless
+            tmarg = (max(3.0 * st.bend.ip_dx,
+                         beam_bend.reach_of(st.bend) + st.bend.ip_dx)
+                     if st.tighten_sampling and not cut else 0.0)
+            cand, bin_start, n_drop_beam, t0, t1 = tile_kernel.prep_candidates(
+                ip_pack, p_def, origin, axis, tan_half, t0, t1,
+                n_cand=st.bend.ips_per_tile, n_bins=K + 2,
+                beam_margin=beam_bend.margin_of(st.bend), tighten_margin=tmarg)
+            dropped_beam = torch.where(act_mask, n_drop_beam, 0).sum()
+        else:
+            cand = torch.zeros((a_cap, max(st.bend.ips_per_tile, 64),
+                                tile_kernel.PACK_FAST), dtype=torch.float32,
+                               device=dev)
+            bin_start = torch.zeros((a_cap, K + 4), dtype=torch.int32,
+                                    device=dev)
+            dropped_beam = torch.zeros((), dtype=torch.int64, device=dev)
 
-    tile_sc = torch.zeros((a_cap, 8), dtype=torch.float32, device=dev)
-    tile_sc[:, 0] = t0
-    tile_sc[:, 1] = t1
-    tile_sc[:, 2] = any_hit.float()
+        tile_sc = torch.zeros((a_cap, 8), dtype=torch.float32, device=dev)
+        tile_sc[:, 0] = t0
+        tile_sc[:, 1] = t1
+        tile_sc[:, 2] = any_hit.float()
 
-    params = torch.zeros((24,), dtype=torch.float32, device=dev)
-    params[0:3] = o
-    params[3:6] = bbmin
-    params[6:9] = bbmax
-    params[9] = st.T_thresh
-    params[10] = st.density_scale
-    params[11] = st.bend.ip_dx
-    params[12] = st.min_near
-    if cut:
-        params[13:19] = cut_bounds
-    params[19] = t_jitter                  # 0.5: bin centers
-    params[20] = beam_bend.reach_of(st.bend)
+        params = torch.zeros((24,), dtype=torch.float32, device=dev)
+        params[0:3] = o
+        params[3:6] = bbmin
+        params[6:9] = bbmax
+        params[9] = st.T_thresh
+        params[10] = st.density_scale
+        params[11] = st.bend.ip_dx
+        params[12] = st.min_near
+        if cut:
+            params[13:19] = cut_bounds
+        params[19] = t_jitter                  # 0.5: bin centers
+        params[20] = beam_bend.reach_of(st.bend)
 
-    if K % st.seg_samples == 0:
-        Ks = st.seg_samples
-    else:
-        Ks = next(k for k in (16, 8, 4, 2, 1) if K % k == 0)
-    Ksb = st.bend_sub if Ks % st.bend_sub == 0 else Ks
-    kw = dict(K=K, Ks=Ks, Ksb=Ksb,
-              Wn=min(st.bend_window, st.bend.ips_per_tile),
-              num_seek=st.bend.num_seek_ip, deformed=deformed, cut=cut)
-    return (tile_sc, bin_start, params, dirs, cand), kw, dropped_beam
+        if K % st.seg_samples == 0:
+            Ks = st.seg_samples
+        else:
+            Ks = next(k for k in (16, 8, 4, 2, 1) if K % k == 0)
+        Ksb = st.bend_sub if Ks % st.bend_sub == 0 else Ks
+        kw = dict(K=K, Ks=Ks, Ksb=Ksb,
+                  Wn=min(st.bend_window, st.bend.ips_per_tile),
+                  num_seek=st.bend.num_seek_ip, deformed=deformed, cut=cut)
+        return (tile_sc, bin_start, params, dirs, cand), kw, dropped_beam
 
 
 def _fused_tile_pass(st, packed_w, ip_pack, p_def, o, pose, intrinsics,
@@ -275,19 +283,20 @@ def _fused_tile_pass(st, packed_w, ip_pack, p_def, o, pose, intrinsics,
 def _scatter_frame(n_tiles, T2, bg_color, parts):
     """Composite onto the background and scatter each (ids, mask, imgs,
     depths, wss) slot list into the frame, in order."""
-    dev = parts[0][2].device
-    bg = torch.as_tensor(bg_color, dtype=torch.float32,
-                         device=dev).expand(3)
-    frame = torch.zeros((n_tiles + 1, T2, 3), device=dev) + bg
-    fdepth = torch.zeros((n_tiles + 1, T2), device=dev)
-    fws = torch.zeros((n_tiles + 1, T2), device=dev)
-    for ids, mask, imgs, depths, wss in parts:
-        imgs = imgs + (1.0 - wss)[..., None] * bg
-        safe = torch.where(mask, ids, n_tiles)
-        frame[safe] = imgs
-        fdepth[safe] = depths
-        fws[safe] = wss
-    return frame[:n_tiles], fdepth[:n_tiles], fws[:n_tiles]
+    with span(FRAME_RENDER_SCATTER):
+        dev = parts[0][2].device
+        bg = torch.as_tensor(bg_color, dtype=torch.float32,
+                             device=dev).expand(3)
+        frame = torch.zeros((n_tiles + 1, T2, 3), device=dev) + bg
+        fdepth = torch.zeros((n_tiles + 1, T2), device=dev)
+        fws = torch.zeros((n_tiles + 1, T2), device=dev)
+        for ids, mask, imgs, depths, wss in parts:
+            imgs = imgs + (1.0 - wss)[..., None] * bg
+            safe = torch.where(mask, ids, n_tiles)
+            frame[safe] = imgs
+            fdepth[safe] = depths
+            fws[safe] = wss
+        return frame[:n_tiles], fdepth[:n_tiles], fws[:n_tiles]
 
 
 def active_tiles(st, p_def, pose, intrinsics, H, W, chunk):
@@ -295,19 +304,20 @@ def active_tiles(st, p_def, pose, intrinsics, H, W, chunk):
     deformed IPs' bbox, or the scene box in cut and static frames), and in
     deformed non-cut frames the candidate gate. Returns (n_tiles, o,
     bbmin, bbmax, act_ids, act_mask, act_n, overflow)."""
-    if st.deformed and not st.cut:           # the deformed IPs' bbox
-        bbmin, bbmax = p_def.amin(dim=0) - 1e-3, p_def.amax(dim=0) + 1e-3
-    else:
-        bbmin, bbmax = _scene_box(st, pose.device)
-    all_tids, o, d_all, near_all, far_all, hit_tile = _tile_hits(
-        st, bbmin, bbmax, pose, intrinsics, H, W)
-    n_tiles = all_tids.shape[0]
-    if st.deformed and not st.cut and st.gate_tiles:
-        hit_tile = hit_tile & _tiles_with_candidates(
-            st, p_def, o, d_all, near_all, far_all, hit_tile, intrinsics)
-    act_ids, act_mask, act_n, overflow = _compact_tiles(
-        hit_tile, _cap(st.active_frac, n_tiles, chunk), all_tids)
-    return n_tiles, o, bbmin, bbmax, act_ids, act_mask, act_n, overflow
+    with span(FRAME_RENDER_ACTIVITY):
+        if st.deformed and not st.cut:           # the deformed IPs' bbox
+            bbmin, bbmax = p_def.amin(dim=0) - 1e-3, p_def.amax(dim=0) + 1e-3
+        else:
+            bbmin, bbmax = _scene_box(st, pose.device)
+        all_tids, o, d_all, near_all, far_all, hit_tile = _tile_hits(
+            st, bbmin, bbmax, pose, intrinsics, H, W)
+        n_tiles = all_tids.shape[0]
+        if st.deformed and not st.cut and st.gate_tiles:
+            hit_tile = hit_tile & _tiles_with_candidates(
+                st, p_def, o, d_all, near_all, far_all, hit_tile, intrinsics)
+        act_ids, act_mask, act_n, overflow = _compact_tiles(
+            hit_tile, _cap(st.active_frac, n_tiles, chunk), all_tids)
+        return n_tiles, o, bbmin, bbmax, act_ids, act_mask, act_n, overflow
 
 
 def cut_classes(st, pose, intrinsics, H, W, cut_bounds):
@@ -317,20 +327,21 @@ def cut_classes(st, pose, intrinsics, H, W, cut_bounds):
     sample (``cut_static_frac`` slots). It depends on the camera and the
     cut box only. Returns (o, bbmin, bbmax, bend, static), each class as
     (ids, mask, n, overflow)."""
-    bbmin, bbmax = _scene_box(st, pose.device)
-    all_tids, o, d_all, _, _, hit_tile = _tile_hits(
-        st, bbmin, bbmax, pose, intrinsics, H, W)
-    n_tiles = all_tids.shape[0]
-    cb = cut_bounds
-    cnear, _ = _near_far(o, d_all, cb[0::2], cb[1::2], st.min_near)
-    cut_hit = (cnear < 1e30).any(dim=1)
-    bend = _compact_tiles(hit_tile & cut_hit,
-                          _cap(st.active_frac, n_tiles, st.tile_chunk),
-                          all_tids)
-    static = _compact_tiles(hit_tile & ~cut_hit,
-                            _cap(st.cut_static_frac, n_tiles, st.tile_chunk),
-                            all_tids)
-    return o, bbmin, bbmax, bend, static
+    with span(FRAME_RENDER_ACTIVITY):
+        bbmin, bbmax = _scene_box(st, pose.device)
+        all_tids, o, d_all, _, _, hit_tile = _tile_hits(
+            st, bbmin, bbmax, pose, intrinsics, H, W)
+        n_tiles = all_tids.shape[0]
+        cb = cut_bounds
+        cnear, _ = _near_far(o, d_all, cb[0::2], cb[1::2], st.min_near)
+        cut_hit = (cnear < 1e30).any(dim=1)
+        bend = _compact_tiles(hit_tile & cut_hit,
+                              _cap(st.active_frac, n_tiles, st.tile_chunk),
+                              all_tids)
+        static = _compact_tiles(
+            hit_tile & ~cut_hit,
+            _cap(st.cut_static_frac, n_tiles, st.tile_chunk), all_tids)
+        return o, bbmin, bbmax, bend, static
 
 
 def render_static_cache(
@@ -385,59 +396,61 @@ def render_frame_fused(
     ``render_static_cache``) in two passes and scatters them in that
     order. Capacity overflow is counted in ``dropped_beam`` /
     ``dropped_window`` / ``n_tile_overflow``."""
-    st = settings
-    _check_supported(st)
-    if st.bend.max_iter_num != 1:
-        raise NotImplementedError(
-            "the fused frame needs max_iter_num == 1; deeper Newton runs "
-            "render_frame")
-    if ip_pack.shape[1] != tile_kernel.PACK_FAST:
-        raise ValueError("the fused path needs pack_ip_data_fast rows")
-    cb = _cut_box(st, cut_bounds, pose.device)
-    T2 = st.tile ** 2
+    with span(FRAME_RENDER):
+        st = settings
+        _check_supported(st)
+        if st.bend.max_iter_num != 1:
+            raise NotImplementedError(
+                "the fused frame needs max_iter_num == 1; deeper Newton runs "
+                "render_frame")
+        if ip_pack.shape[1] != tile_kernel.PACK_FAST:
+            raise ValueError("the fused path needs pack_ip_data_fast rows")
+        cb = _cut_box(st, cut_bounds, pose.device)
+        T2 = st.tile ** 2
 
-    if st.cut and st.deformed and st.cut_split:
-        o, bbmin, bbmax, bend, static = cut_classes(st, pose, intrinsics, H,
-                                                    W, cb)
-        n_tiles = (H // st.tile) * (W // st.tile)
-        ids_b, mask_b, n_b, ovf_b = bend
-        imgs_b, dep_b, ws_b, dr_beam, dr_win = _fused_tile_pass(
-            st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
-            ids_b, mask_b, bbmin, bbmax, deformed=True, cut=True,
-            cut_bounds=cb, t_jitter=t_jitter)
-        if static_cache is None:
-            ids_s, mask_s, n_s, ovf_s = static
-            imgs_s, dep_s, ws_s, _, _ = _fused_tile_pass(
+        if st.cut and st.deformed and st.cut_split:
+            o, bbmin, bbmax, bend, static = cut_classes(
+                st, pose, intrinsics, H, W, cb)
+            n_tiles = (H // st.tile) * (W // st.tile)
+            ids_b, mask_b, n_b, ovf_b = bend
+            imgs_b, dep_b, ws_b, dr_beam, dr_win = _fused_tile_pass(
                 st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
-                ids_s, mask_s, bbmin, bbmax, deformed=False,
-                t_jitter=t_jitter)
-        else:
-            c = static_cache
-            ids_s, mask_s, n_s, ovf_s = c["ids"], c["mask"], c["n"], \
-                c["overflow"]
-            imgs_s, dep_s, ws_s = c["imgs"], c["depths"], c["ws"]
+                ids_b, mask_b, bbmin, bbmax, deformed=True, cut=True,
+                cut_bounds=cb, t_jitter=t_jitter)
+            if static_cache is None:
+                ids_s, mask_s, n_s, ovf_s = static
+                imgs_s, dep_s, ws_s, _, _ = _fused_tile_pass(
+                    st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
+                    ids_s, mask_s, bbmin, bbmax, deformed=False,
+                    t_jitter=t_jitter)
+            else:
+                c = static_cache
+                ids_s, mask_s, n_s, ovf_s = c["ids"], c["mask"], c["n"], \
+                    c["overflow"]
+                imgs_s, dep_s, ws_s = c["imgs"], c["depths"], c["ws"]
+            frame, fdepth, fws = _scatter_frame(
+                n_tiles, T2, bg_color,
+                [(ids_b, mask_b, imgs_b, dep_b, ws_b),
+                 (ids_s, mask_s, imgs_s, dep_s, ws_s)])
+            return {"tiles_image": frame, "tiles_depth": fdepth,
+                    "tiles_ws": fws, "n_active": n_b + n_s,
+                    "n_tile_overflow": ovf_b + ovf_s,
+                    "dropped_beam": dr_beam,
+                    "dropped_window": dr_win.to(torch.int64)}
+
+        (n_tiles, o, bbmin, bbmax, act_ids, act_mask, act_n,
+         overflow) = active_tiles(st, p_def, pose, intrinsics, H, W,
+                                   st.tile_chunk)
+        imgs, depths, wss, dr_beam, dr_win = _fused_tile_pass(
+            st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
+            act_ids, act_mask, bbmin, bbmax, deformed=st.deformed, cut=st.cut,
+            cut_bounds=cb, t_jitter=t_jitter)
         frame, fdepth, fws = _scatter_frame(
-            n_tiles, T2, bg_color,
-            [(ids_b, mask_b, imgs_b, dep_b, ws_b),
-             (ids_s, mask_s, imgs_s, dep_s, ws_s)])
+            n_tiles, T2, bg_color, [(act_ids, act_mask, imgs, depths, wss)])
         return {"tiles_image": frame, "tiles_depth": fdepth, "tiles_ws": fws,
-                "n_active": n_b + n_s, "n_tile_overflow": ovf_b + ovf_s,
+                "n_active": act_n, "n_tile_overflow": overflow,
                 "dropped_beam": dr_beam,
                 "dropped_window": dr_win.to(torch.int64)}
-
-    (n_tiles, o, bbmin, bbmax, act_ids, act_mask, act_n,
-     overflow) = active_tiles(st, p_def, pose, intrinsics, H, W,
-                               st.tile_chunk)
-    imgs, depths, wss, dr_beam, dr_win = _fused_tile_pass(
-        st, packed_w, ip_pack, p_def, o, pose, intrinsics, H, W,
-        act_ids, act_mask, bbmin, bbmax, deformed=st.deformed, cut=st.cut,
-        cut_bounds=cb, t_jitter=t_jitter)
-    frame, fdepth, fws = _scatter_frame(
-        n_tiles, T2, bg_color, [(act_ids, act_mask, imgs, depths, wss)])
-    return {"tiles_image": frame, "tiles_depth": fdepth, "tiles_ws": fws,
-            "n_active": act_n, "n_tile_overflow": overflow,
-            "dropped_beam": dr_beam,
-            "dropped_window": dr_win.to(torch.int64)}
 
 
 def _composite(st, sigma, rgb, t, dt):

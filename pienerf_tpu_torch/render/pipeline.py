@@ -5,8 +5,10 @@ then the spatial-hash deformed render of ``render/deformed.py``, any
 backbone) and ``interactive_frame_step`` (the sim step, then the fused
 tile kernel, mlp backbone). The JAX package runs a frame as one jit; here
 it runs eagerly (one CUDA graph a frame is ROADMAP.md queue 1 item 2).
-The stages are named ranges (``frame.sim``, ``frame.ip_pack``,
-``frame.render``) for ``torch.profiler``.
+Under ``torch.profiler`` the stages are spans (``utils/trace.py``): this
+module opens ``frame.sim`` and ``frame_step``'s ``frame.render``; the
+functions it calls open their own (``frame.ip_info``, ``frame.ip_pack``,
+``render_frame_fused``'s ``frame.render`` and the spans inside it).
 """
 
 from __future__ import annotations
@@ -14,12 +16,12 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from pienerf_tpu_torch.models import network
 from pienerf_tpu_torch.ops import beam_bend
 from pienerf_tpu_torch.render import deformed, interactive
 from pienerf_tpu_torch.sim import solver as sim
+from pienerf_tpu_torch.utils.trace import FRAME_RENDER, FRAME_SIM, span
 
 
 class FrameSettings(NamedTuple):
@@ -46,7 +48,7 @@ def frame_step(
     consts built at dt = frame_dt / substeps. The rays render in chunks of
     ``deformed.CHUNK`` over one prepared frame (rays are independent).
     Returns (state, {image, depth_raw, weights_sum} over the N rays)."""
-    with record_function("frame.sim"):
+    with span(FRAME_SIM):
         # the picked IP's force, or none where force_vid < 0: a tensor
         # condition, no host branch on the pick
         vid = torch.as_tensor(force_vid, device=state.ddof.device)
@@ -56,9 +58,8 @@ def frame_step(
             vid >= 0, state_f.dof_f, torch.zeros_like(state.dof_f)))
         for _ in range(substeps):
             state = sim.sim_step(consts, state)
-    with record_function("frame.ip_pack"):
-        p_def, F, dF = sim.get_ip_info(consts, state)
-    with record_function("frame.render"):
+    p_def, F, dF = sim.get_ip_info(consts, state)
+    with span(FRAME_RENDER):
         out = deformed.render_deformed_chunked(
             field, settings.deformed, bitfield, p_def, consts.ip_pos.float(),
             F, dF, rays_o, rays_d, bg_color, cut_bounds)
@@ -108,19 +109,16 @@ def interactive_frame_step(
     ``substeps`` > 1 needs consts built at dt = frame_dt / substeps. In cut
     mode ``static_cache`` (``interactive.render_static_cache``) stands in
     for the static tile class under a fixed camera."""
-    with record_function("frame.sim"):
+    with span(FRAME_SIM):
         if force_vid >= 0:
             state = sim.update_force(consts, state, force_vid, force)
         else:
             state = sim.clear_force(state)
         for _ in range(substeps):
             state = sim.sim_step(consts, state)
-    with record_function("frame.ip_pack"):
-        p_def, F, dF = sim.get_ip_info(consts, state)
-        pack = beam_bend.pack_ip_data_fast(p_def, consts.ip_pos.float(), F,
-                                           dF)
-    with record_function("frame.render"):
-        out = interactive.render_frame_fused(
-            settings, packed_w, pack, p_def, pose, intrinsics, H, W,
-            bg_color, cut_bounds, static_cache=static_cache)
+    p_def, F, dF = sim.get_ip_info(consts, state)
+    pack = beam_bend.pack_ip_data_fast(p_def, consts.ip_pos.float(), F, dF)
+    out = interactive.render_frame_fused(
+        settings, packed_w, pack, p_def, pose, intrinsics, H, W, bg_color,
+        cut_bounds, static_cache=static_cache)
     return state, out

@@ -34,6 +34,7 @@ import torch
 
 from pienerf_tpu_torch.sim import gmls
 from pienerf_tpu_torch.sim.svd3 import corotated_delta
+from pienerf_tpu_torch.utils.trace import FRAME_IP_INFO, span
 
 DENSE_IP_THRESHOLD = 6000
 
@@ -512,12 +513,14 @@ def sim_step(consts: SimConstants, state: SimState,
 def get_ip_info(consts: SimConstants, state: SimState
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(p_def [n,3], F [n,3,3], dF [n,3,3,3]) float32 per IP."""
-    ddof_g = state.ddof[consts.IP_kernel]                      # [n,8,10,3]
-    p = consts.ip_pos + torch.einsum("via,viad->vd", consts.IP_Nx, ddof_g)
-    F = torch.eye(3, dtype=p.dtype, device=p.device) + torch.einsum(
-        "vica,viad->vdc", consts.IP_dNx, ddof_g)
-    dF = torch.einsum("vijca,viad->vjdc", consts.IP_ddNx, ddof_g)
-    return p.float(), F.float(), dF.float()
+    with span(FRAME_IP_INFO):
+        ddof_g = state.ddof[consts.IP_kernel]                  # [n,8,10,3]
+        p = consts.ip_pos + torch.einsum("via,viad->vd", consts.IP_Nx,
+                                         ddof_g)
+        F = torch.eye(3, dtype=p.dtype, device=p.device) + torch.einsum(
+            "vica,viad->vdc", consts.IP_dNx, ddof_g)
+        dF = torch.einsum("vijca,viad->vjdc", consts.IP_ddNx, ddof_g)
+        return p.float(), F.float(), dF.float()
 
 
 def update_force(consts: SimConstants, state: SimState, vid: int,

@@ -35,6 +35,7 @@ import torch
 from pienerf_tpu_torch.gui import DynamicResolution, InteractionState
 from pienerf_tpu_torch.io.framesink import encode_png
 from pienerf_tpu_torch.utils.camera import OrbitCamera
+from pienerf_tpu_torch.utils.trace import FRAME_FETCH, span
 
 PNG_LEVEL = 1       # zlib level of the served frames: the fastest
 
@@ -42,15 +43,16 @@ PNG_LEVEL = 1       # zlib level of the served frames: the fastest
 def _fetch_frame(out, n_tiles, T2):
     """One device-to-host copy a frame: image, depth, weight sum and the
     four counters packed on the device."""
-    packed = torch.cat([
-        out["tiles_image"].reshape(-1).float(),
-        out["tiles_depth"].reshape(-1).float(),
-        out["tiles_ws"].reshape(-1).float(),
-        torch.stack([out[k].reshape(()).float() for k in (
-            "n_active", "dropped_beam", "dropped_window",
-            "n_tile_overflow")]),
-    ])
-    host = packed.cpu().numpy()
+    with span(FRAME_FETCH):
+        packed = torch.cat([
+            out["tiles_image"].reshape(-1).float(),
+            out["tiles_depth"].reshape(-1).float(),
+            out["tiles_ws"].reshape(-1).float(),
+            torch.stack([out[k].reshape(()).float() for k in (
+                "n_active", "dropped_beam", "dropped_window",
+                "n_tile_overflow")]),
+        ])
+        host = packed.cpu().numpy()
     n_img = n_tiles * T2 * 3
     n_pix = n_tiles * T2
     img = host[:n_img].reshape(n_tiles, T2, 3)
