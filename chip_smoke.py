@@ -94,7 +94,9 @@ tile_split runs the tile kernel's timed instantiation on the bench
 inputs (deformed, both widths) and the cut pass's, in bf16 and in f32: its
 output equal to the untimed kernel's, where each tile's cycles go (window
 staging, scan, bend and blend, MLP, composite) and how the tiles fill the
-card's slots. Every tile check times the f32 kernel too (the dtype
+card's slots; in f32 also the share of the executed sample steps the MLP
+evaluated (the live samples alone) and how full its passes of 256 ran.
+Every tile check times the f32 kernel too (the dtype
 main_gui and main_viewer run without -O; its MLP register-blocked on the
 CUDA cores), and frame_f32 runs main path 1 in f32. With
 PIENERF_TILE_BASELINE set to an unpacked checkout of another commit (the
@@ -786,9 +788,11 @@ def tile_split(phase, tk, spec, pw, args, kw, base_row, resident,
     tiles over ``resident`` x ``n_sm`` slots), the share of tiles in the
     last wave and the share of the kernel's span after the last wave's
     first start (global timer), and the slots' fill (the tiles' summed
-    ns over slots x span). With the baseline's timed library, its split
+    ns over slots x span). f32: the points the MLP evaluated over the
+    executed sample steps x 256 (``evaluated_share``) and over its passes
+    x 256 (``batch_fill``). With the baseline's timed library, its split
     and timed ms beside (``before``, at its ``before_resident`` blocks an
-    SM)."""
+    SM; a library without the counts marches every sample)."""
     import torch
     skw = {k: kw[k] for k in ("K", "Ks", "Ksb", "Wn", "num_seek", "cut")}
     active = args[0][:, 2] > 0
@@ -801,7 +805,7 @@ def tile_split(phase, tk, spec, pw, args, kw, base_row, resident,
     def split(res):
         """The timed run's output and its cycles by phase and tile."""
         out_t, cyc = timed()
-        c = cyc[active].double().cpu()                 # [n, 8 warps, 8]
+        c = cyc[active].double().cpu()        # [n, 8 warps, SPLIT_COLS]
         ph = c[..., :n_ph].sum(dim=(0, 1))
         total = c[..., n_ph].amax(1)                   # per tile
         start, end = c[..., n_ph + 1].amin(1), c[..., n_ph + 2].amax(1)
@@ -809,7 +813,15 @@ def tile_split(phase, tk, spec, pw, args, kw, base_row, resident,
         n, slots = int(c.shape[0]), res * n_sm
         n_last = n % slots or slots
         last_start = float(start.sort().values[n - n_last])
+        # the f32 path's evaluated points and MLP passes (0: not counted)
+        pts = float(c[:, 0, n_ph + 3].sum())
+        passes = float(c[:, 0, n_ph + 4].sum())
+        counts = {} if passes == 0 else dict(
+            evaluated_points=pts, mlp_passes=passes,
+            evaluated_share=pts / (steps * 32), batch_fill=pts / (
+                passes * tk.T2))
         return out_t, dict(
+            **counts,
             share={p: float(ph[i] / ph.sum())
                    for i, p in enumerate(tk.SPLIT_PHASES)},
             warp_cycles_per_sample_step={p: float(ph[i] / steps)

@@ -52,8 +52,9 @@
 // 18,752-MAC (Wd 64) or 63,616-MAC (Wd 128) field MLP plus, in the bending
 // modes, its distance to each of the Wn window rows and num_seek nearest
 // picks; a tile reads ~30 KB and writes 8 KB. The work depends on the data
-// (early exit, empty-segment skip), so the bound counts executed segments
-// x 256 rays x Ks samples.
+// (early exit, empty-segment skip): the bf16 and paired paths run executed
+// segments x 256 rays x Ks samples through the MLP, the f32 path only the
+// live ones among them (in range, found, on a ray not yet under T_thresh).
 //
 // Design: one thread per ray, 256 threads per block; every per-sample
 // intermediate stays on chip (registers, and shared memory for the MLP).
@@ -76,14 +77,28 @@
 // tiles in flight at a time), every layer's bf16 weights staged once per
 // block; the sample loops are block-uniform, so every thread of a
 // warpgroup reaches the MMAs (mma_field's own __syncwarp reconverges each
-// warp after the per-ray bending). f32, default and block_tiles schedules: the block runs one
-// sample of each of its 256 rays through the MLP as one register-blocked
-// pass of 256 points on the CUDA cores (f32_sample: field_f32.cuh's layers,
-// every thread a 4 x 16 tile of each hidden layer at Wd 64, 8 x 16 at Wd
-// 128, the activations [WD][256] in shared memory); Net64's weights stay
-// resident, staged once per block, Net128's (255 KB) stream through two
-// 32 KB cp.async chunks, once a pass. Every output is the chain one thread
-// a point computes, bit for bit. f32 paired: each thread runs its ray's
+// warp after the per-ray bending). f32, default and block_tiles schedules:
+// the block evaluates only the samples the output needs. A group is up to
+// kKsbMax consecutive samples of every ray (one bend pass; in static mode
+// up to kKsbMax samples of a sub-segment, all of it at the default Ksb 4):
+// each
+// thread marks its ray's live samples in a bit mask (in the march's range,
+// found by the bend, the ray's transmittance not yet under T_thresh), a
+// block-wide scan (warp ballots, then the 8 warp totals) lists the live
+// slots in shared memory, and the list runs through the MLP in
+// ceil(n / 256) register-blocked passes of 256 points on the CUDA cores
+// (f32_sample: field_f32.cuh's layers, every thread a 4 x 16 tile of each
+// hidden layer at Wd 64, 8 x 16 at Wd 128, the activations [WD][256] in
+// shared memory), thread r taking list entry 256 p + r with that slot's
+// ray's position and direction; each result (sigma, rgb) goes back into
+// its slot of xs, in the bending modes over the position it came from.
+// Each thread then composites its own ray's samples in order, a sample
+// that is not live with sigma 0 (sg 0, rgb 0): the output equals that of
+// marching every sample bit for bit (see `live_from` for the dead rays).
+// Net64's weights stay resident, staged once per block, Net128's (255 KB)
+// stream through two 32 KB cp.async chunks, once a pass. Every output is
+// the chain one thread a point computes, bit for bit. f32 paired (which,
+// like bf16, marches every sample): each thread runs its ray's
 // sample through paired_layer alone (one column pair a thread, the weights
 // staged once per block). The TPU kernel's
 // one-hot MXU fetch becomes a plain indexed read from the sub-segment's
@@ -182,12 +197,14 @@ __device__ __forceinline__ void f32_sample(W& w, float* __restrict__ A,
 // warp's clock cycles per phase of a tile: window staging (its waits and
 // barriers included), the nearest-row scan, the bend and blend, the MLP,
 // the composite with the segment's early-exit barrier; then the tile's
-// total cycles and its start and end on the global nanosecond timer. Lane
-// 0 of each warp writes them to cyc[a, warp, kSplit]. The sums are 32-bit
-// (a tile runs far fewer than 2^32 cycles), to keep the registers the
-// untimed kernel has.
+// total cycles and its start and end on the global nanosecond timer; then,
+// f32 (not paired), the points the MLP evaluated and the passes of kT2
+// points it ran (0 in bf16, whose MLP takes every sample). Lane 0 of each
+// warp writes them to cyc[a, warp, kSplit] (the counts are the block's, the
+// same in every warp). The sums are 32-bit (a tile runs far fewer than
+// 2^32 cycles), to keep the registers the untimed kernel has.
 constexpr int kPhases = 5;
-constexpr int kSplit = kPhases + 3;
+constexpr int kSplit = kPhases + 5;
 
 __device__ __forceinline__ long long globaltimer_ns() {
 #ifdef PIENERF_EMU_CLOCK
@@ -203,6 +220,7 @@ template <bool ON>
 struct PhaseClock {
   unsigned sum[kPhases];
   unsigned last, t0;
+  unsigned points, passes;
   __device__ __forceinline__ static unsigned now() {
     return (unsigned)clock64();
   }
@@ -212,10 +230,16 @@ struct PhaseClock {
   __device__ __forceinline__ void tile_start(long long* cyc, int a) {
 #pragma unroll
     for (int p = 0; p < kPhases; ++p) sum[p] = 0;
+    points = passes = 0;
     if ((threadIdx.x & 31) == 0) slot(cyc, a)[kPhases + 1] = globaltimer_ns();
     t0 = last = now();
   }
   __device__ __forceinline__ void mark() { last = now(); }
+  // a group's live points and the MLP passes they took
+  __device__ __forceinline__ void count(int n, int n_pass) {
+    points += n;
+    passes += n_pass;
+  }
   // the cycles since the last mark or lap go to phase p
   __device__ __forceinline__ void lap(int p) {
     const unsigned t = now();
@@ -230,6 +254,8 @@ struct PhaseClock {
       for (int p = 0; p < kPhases; ++p) c[p] = sum[p];
       c[kPhases] = t1 - t0;
       c[kPhases + 2] = globaltimer_ns();
+      c[kPhases + 3] = points;
+      c[kPhases + 4] = passes;
     }
   }
 };
@@ -237,6 +263,7 @@ template <>
 struct PhaseClock<false> {
   __device__ __forceinline__ void tile_start(long long*, int) {}
   __device__ __forceinline__ void mark() {}
+  __device__ __forceinline__ void count(int, int) {}
   __device__ __forceinline__ void lap(int) {}
   __device__ __forceinline__ void tile_end(long long*, int) {}
 };
@@ -294,6 +321,11 @@ __device__ __forceinline__ void window_issue(float* win, uint64_t* bar,
 // Samples one window pass serves; a sub-segment of more makes one pass per
 // kKsbMax of them.
 constexpr int kKsbMax = 4;
+
+// The f32 (not paired) path's list of live slots (kk kT2 + ray, u16) of
+// one group and the 8 warps' counts of them.
+constexpr size_t kListBytes =
+    (size_t)kKsbMax * kT2 * sizeof(unsigned short) + (kT2 / 32) * sizeof(int);
 
 // Bend nk (<= kKsbMax) consecutive samples of this thread's ray through
 // the staged window (tile_kernel.py:396-463): one pass over rows [r0, r1)
@@ -416,6 +448,27 @@ __device__ __forceinline__ void bend_samples(
   clk.lap(2);
 }
 
+// The f32 path's test of whether a ray may still add to its output in a
+// group of samples, from what is known before the MLP runs: its optical
+// depth cum before the segment and the segment's sum S before the group.
+// The composite weighs a later sample of the segment by T_prev =
+// expf(-(cum + ((S' + tau) - tau))), S' >= S its running sum, and gives it
+// weight 0 once T_prev < T_thresh. The rounding of (S' + tau) - tau can
+// leave up to (S + tau_max) 2^-23 less than S, tau_max the largest tau one
+// sample can add (sigma <= expf(15) < 3.3e6), so a ray counts as dead only
+// once T is under T_thresh at S less four times that: every later sample
+// of the segment then weighs 0 whatever its sigma, and cum, which only
+// grows, keeps the ray under T_thresh in every later segment, as the
+// tile's early exit assumes. So a dead ray's samples may add tau 0
+// instead of their own: no output row changes. With tau of either sign,
+// or unbounded (tau_max not in [0, inf)), every ray counts as alive.
+__device__ __forceinline__ bool live_from(float cum, float S, float tau_max,
+                                          float T_thresh) {
+  if (!(tau_max >= 0.f && tau_max < INFINITY)) return true;
+  const float lo = fmaxf(S - (S + tau_max) * 0x1p-21f, 0.f);
+  return !(expf(-(cum + lo)) < T_thresh);
+}
+
 // The kernel's body; render_tiles_kernel (bf16) and render_tiles_kernel_f32
 // below are its entry points.
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
@@ -428,6 +481,9 @@ __device__ __forceinline__ void render_tiles_block(
     int Ksb, int Wn, int num_seek, float bound, long long* __restrict__ cyc) {
   constexpr bool kWide = N::kWd == 128;
   static_assert(!PAIRED || !kWide, "only the 64-wide net pairs");
+  // f32, default and block_tiles schedules: only the live samples go
+  // through the MLP (the notes at the top)
+  constexpr bool kCompact = !BF16 && !PAIRED;
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);      // weights
   [[maybe_unused]] float* buf =                     // f32 activations
@@ -446,14 +502,20 @@ __device__ __forceinline__ void render_tiles_block(
   [[maybe_unused]] uint32_t* wtile = reinterpret_cast<uint32_t*>(
       reinterpret_cast<char*>(smem4) + N::mma_bytes() +
       (threadIdx.x >> 5) * kWarpTileBytes);
-  // bending modes only: the bent positions and found flags of up to
-  // kKsbMax samples [kKsbMax, 4, kT2]; each thread's count of the window
-  // phases it has waited on [kT2]; the window's mbarrier; the window
+  // bending modes: the bent positions and found flags of up to kKsbMax
+  // samples [kKsbMax, 4, kT2] (f32, not paired: each live one's sigma and
+  // rgb in their place once the MLP has run; in static mode those alone).
+  // f32, not paired: the group's list of live slots [kKsbMax kT2] and the
+  // warps' counts [kT2 / 32]. Bending modes: each thread's count of the
+  // window phases it has waited on [kT2]; the window's mbarrier; the window
   // [Wn, 16]. In this order every offset is a constant.
   [[maybe_unused]] float* xs = reinterpret_cast<float*>(
       reinterpret_cast<char*>(smem4) + mlp_bytes<BF16, PAIRED, N>());
-  [[maybe_unused]] int* phase =
-      reinterpret_cast<int*>(xs + kKsbMax * 4 * kT2);
+  [[maybe_unused]] unsigned short* lst = reinterpret_cast<unsigned short*>(
+      xs + (DEFORMED || kCompact ? kKsbMax * 4 * kT2 : 0));
+  [[maybe_unused]] int* wtot =
+      reinterpret_cast<int*>(lst + (kCompact ? kKsbMax * kT2 : 0));
+  [[maybe_unused]] int* phase = wtot + (kCompact ? kT2 / 32 : 0);
   [[maybe_unused]] uint64_t* bar = reinterpret_cast<uint64_t*>(phase + kT2);
   [[maybe_unused]] float* win = reinterpret_cast<float*>(bar + 2);
   const int r = threadIdx.x;
@@ -539,6 +601,8 @@ __device__ __forceinline__ void render_tiles_block(
     // width
     const int halo =
         DEFORMED ? max((int)ceilf(reach / jmax(dt_s, 1e-9f)), 1) : 0;
+    // f32, not paired: the largest tau one sample can add (live_from)
+    [[maybe_unused]] const float tau_max = (3.3e6f * dscale) * dt_s;
 
     // SH(d): bf16 stages it once a tile, f32 paired keeps it for the color
     // column (f32_sample recomputes it a sample)
@@ -585,20 +649,109 @@ __device__ __forceinline__ void render_tiles_block(
     while (s < n_seg && alive) {
       float seg_incl = 0.f;
       float pd = 0.f, pwt = 0.f;
-      // sample k of the segment (kk its slot in xs) through the MLP and the
-      // composite
+      // f32, not paired: this ray's live samples of the open group, bit kk
+      // for slot kk
+      [[maybe_unused]] unsigned live = 0;
+      // f32, not paired: the group of samples [k0, k0 + nk) of every ray
+      // (slots 0 .. nk - 1 of xs) through the MLP, the live ones only:
+      // mark, list, evaluate in passes of kT2 points. Block-wide.
+      [[maybe_unused]] auto evaluate = [&](const int k0, const int nk) {
+        clk.mark();
+        live = 0;
+        if (live_from(cum, seg_incl, tau_max, T_thresh)) {
+#pragma unroll
+          for (int kk = 0; kk < kKsbMax; ++kk) {
+            if (kk >= nk) break;
+            const float t =
+                t0 + (((float)(s * Ks) + (float)(k0 + kk)) + t_jit) * dt_s;
+            bool found = true;
+            if constexpr (DEFORMED) found = xs[(4 * kk + 3) * kT2 + r] != 0.f;
+            if (found && (t >= near) && (t <= far) && thit) live |= 1u << kk;
+          }
+        }
+        // the list: warp w's slots after those of warps 0 .. w - 1, each
+        // warp's in slot order, then in lane order
+        const int lane = r & 31, warp = r >> 5;
+        unsigned m[kKsbMax];
+        int cnt = 0;
+#pragma unroll
+        for (int kk = 0; kk < kKsbMax; ++kk) {
+          m[kk] = __ballot_sync(0xffffffffu, (live >> kk) & 1u);
+          cnt += __popc(m[kk]);
+        }
+        if (lane == 0) wtot[warp] = cnt;
+        __syncthreads();
+        int off = 0, n = 0;
+#pragma unroll
+        for (int w = 0; w < kT2 / 32; ++w) {
+          const int c = wtot[w];
+          off += w < warp ? c : 0;
+          n += c;
+        }
+        const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+        for (int kk = 0; kk < kKsbMax; ++kk) {
+          if ((live >> kk) & 1u) {
+            lst[off + __popc(m[kk] & below)] = (unsigned short)(kk * kT2 + r);
+          }
+          off += __popc(m[kk]);
+        }
+        __syncthreads();                  // the list and every position
+        // pass p: thread r takes entry p kT2 + r, its slot's ray's position
+        // and direction; past the list a dummy point, its result dropped
+        const int n_pass = (n + kT2 - 1) / kT2;
+        for (int p = 0; p < n_pass; ++p) {
+          const int e = p * kT2 + r;
+          const int slot = e < n ? lst[e] : -1;
+          const int kk = slot >> 8, ray = slot & (kT2 - 1);
+          float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+          float d[3] = {0.f, 0.f, 1.f};
+          if (slot >= 0) {
+            d[0] = dr[ray];
+            d[1] = dr[kT2 + ray];
+            d[2] = dr[2 * kT2 + ray];
+            if constexpr (DEFORMED) {
+              const float* xk = xs + 4 * kk * kT2 + ray;
+              x0 = xk[0];
+              x1 = xk[kT2];
+              x2 = xk[2 * kT2];
+            } else {
+              const float t =
+                  t0 + (((float)(s * Ks) + (float)(k0 + kk)) + t_jit) * dt_s;
+              x0 = o[0] + t * d[0];
+              x1 = o[1] + t * d[1];
+              x2 = o[2] + t * d[2];
+            }
+          }
+          float sigma, cr, cg, cb;
+          f32_sample<N>(w32, buf, buf + N::kWd * kT2, x0, x1, x2, bound, d,
+                        sigma, cr, cg, cb);
+          if (slot >= 0) {
+            float* q = xs + 4 * kk * kT2 + ray;
+            q[0] = sigma;
+            q[kT2] = cr;
+            q[2 * kT2] = cg;
+            q[3 * kT2] = cb;
+          }
+        }
+        __syncthreads();                  // every result in its slot
+        clk.count(n, n_pass);
+        clk.lap(3);
+      };
+      // sample k of the segment (kk its slot in xs) through the MLP (f32,
+      // not paired: its result from xs) and the composite
       auto sample = [&](const int k, const int kk) {
         // the sample's t: the static march needs it for its position, the
-        // bending modes take it after the MLP, so that it is not live
-        // across it
+        // bending modes (and the f32 path, whose MLP has run) take it
+        // after the MLP, so that it is not live across it
         float t = 0.f;
-        float xm0, xm1, xm2;
-        if constexpr (DEFORMED) {
+        [[maybe_unused]] float xm0, xm1, xm2;
+        if constexpr (!kCompact && DEFORMED) {
           const float* xk = xs + 4 * kk * kT2 + r;
           xm0 = xk[0];
           xm1 = xk[kT2];
           xm2 = xk[2 * kT2];
-        } else {
+        } else if constexpr (!kCompact) {
           t = t0 + (((float)(s * Ks) + (float)k) + t_jit) * dt_s;
           xm0 = o[0] + t * dv[0];
           xm1 = o[1] + t * dv[1];
@@ -609,7 +762,16 @@ __device__ __forceinline__ void render_tiles_block(
         // or with PAIRED the pending sample's
         clk.mark();
         float sigma, cr, cg, cb;
-        if constexpr (BF16 && PAIRED) {
+        if constexpr (kCompact) {
+          // a sample that is not live: sigma 0, and rgb 0 against its
+          // weight 0
+          const bool on = (live >> kk) & 1u;
+          const float* q = xs + 4 * kk * kT2 + r;
+          sigma = on ? q[0] : 0.f;
+          cr = on ? q[kT2] : 0.f;
+          cg = on ? q[2 * kT2] : 0.f;
+          cb = on ? q[3 * kT2] : 0.f;
+        } else if constexpr (BF16 && PAIRED) {
           mma_field_paired<N, kTileMmaTiles<N>>(swm, wtile, head_prev, xm0,
                                                 xm1, xm2, bound, sigma, cr,
                                                 cg, cb);
@@ -647,19 +809,21 @@ __device__ __forceinline__ void render_tiles_block(
           for (int i = 0; i < 16; ++i) colC[i * kT2] = sh[i];
 #pragma unroll
           for (int i = 0; i < 15; ++i) colC[(16 + i) * kT2] = h4[1 + i];
-        } else {
-          f32_sample<N>(w32, buf, buf + N::kWd * kT2, xm0, xm1, xm2, bound,
-                        dv, sigma, cr, cg, cb);
         }
-        clk.lap(3);
+        if constexpr (!kCompact) clk.lap(3);
 
         // transmittance composite with the carried optical depth
         bool found = true;
-        if constexpr (DEFORMED) {
+        if constexpr (kCompact || DEFORMED) {
           t = t0 + (((float)(s * Ks) + (float)k) + t_jit) * dt_s;
+        }
+        if constexpr (!kCompact && DEFORMED) {
           found = xs[(4 * kk + 3) * kT2 + r] != 0.f;
         }
-        const bool vmask = found && (t >= near) && (t <= far) && thit;
+        // f32, not paired: live is vmask on a ray not yet dead
+        const bool vmask =
+            kCompact ? ((live >> kk) & 1u) != 0
+                     : found && (t >= near) && (t <= far) && thit;
         const float sg = vmask ? sigma * dscale : 0.f;
         const float tau = sg * dt_s;
         const float incl = seg_incl + tau;
@@ -743,8 +907,19 @@ __device__ __forceinline__ void render_tiles_block(
               }
               clk.lap(0);
             }
+            if constexpr (kCompact) evaluate(k, nk);
           }
           sample(k, kk);
+        }
+      } else if constexpr (kCompact) {
+        // the static march, a group of up to kKsbMax samples of a
+        // sub-segment at a time
+        for (int sb = 0; sb < n_sub; ++sb) {
+          for (int c0 = 0; c0 < Ksb; c0 += kKsbMax) {
+            const int nk = min(kKsbMax, Ksb - c0);
+            evaluate(sb * Ksb + c0, nk);
+            for (int kk = 0; kk < nk; ++kk) sample(sb * Ksb + c0 + kk, kk);
+          }
         }
       } else {
         // the static march, a sub-segment at a time (a single loop costs
@@ -860,15 +1035,19 @@ constexpr auto tile_kernel_entry() {
   }
 }
 
-// The dynamic shared memory of one launch at window Wn: the MLP's, and in
-// the bending modes the bent positions and found flags of kKsbMax samples,
-// the phase counts, the window's mbarrier (16 bytes, keeping the window
-// 16-byte aligned) and the candidate window.
+// The dynamic shared memory of one launch at window Wn: the MLP's; in the
+// bending modes and on the f32 (not paired) path the group's kKsbMax
+// samples of 4 floats a ray; on that path the list of live slots and the
+// warps' counts (kListBytes); in the bending modes the phase counts, the
+// window's mbarrier (16 bytes, keeping the window 16-byte aligned) and the
+// candidate window.
 template <bool BF16, bool DEFORMED, bool PAIRED, class N>
 size_t launch_smem(int Wn) {
+  constexpr bool kCompact = !BF16 && !PAIRED;
   return mlp_bytes<BF16, PAIRED, N>() +
-         (DEFORMED ? ((size_t)Wn * 16 + kKsbMax * 4 * kT2 + kT2) * 4 + 16
-                   : 0);
+         (DEFORMED || kCompact ? (size_t)kKsbMax * 4 * kT2 * 4 : 0) +
+         (kCompact ? kListBytes : 0) +
+         (DEFORMED ? ((size_t)Wn * 16 + kT2) * 4 + 16 : 0);
 }
 
 template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,

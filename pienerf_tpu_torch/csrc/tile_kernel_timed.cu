@@ -30,7 +30,8 @@ constexpr OccupancyFn kOccupancyTimed[2][2][2] = {
 }  // namespace pienerf
 
 // The timed kernel: pienerf_render_tiles's arguments, and `cyc` the int64
-// split [A, 8 warps, kSplit] (tile_kernel.cuh, PhaseClock); a bending mode
+// split [A, 8 warps, kSplit] (tile_kernel.cuh, PhaseClock: cycles by
+// phase, the f32 path's evaluated points and passes); a bending mode
 // only. Its out equals pienerf_render_tiles's bit for bit.
 extern "C" int pienerf_render_tiles_timed(
     const void* tile_sc, const void* bin_start, const void* params,
@@ -59,6 +60,10 @@ extern "C" int pienerf_render_tiles_timed_occupancy(int bf16, int cut, int wd,
   return (int)pienerf::kOccupancyTimed[wd == 128][bf16 ? 1 : 0][cut ? 1 : 0](
       Wn, blocks, smem_bytes);
 }
+
+// The columns of a tile's record in `cyc`: the phases' cycles, the total,
+// the start and end, the points evaluated and the passes run.
+extern "C" int pienerf_render_tiles_split_cols() { return pienerf::kSplit; }
 
 extern "C" const char* pienerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -14,7 +14,9 @@ Both give the default schedule's output bit for bit. ``render_tiles``
 launches the kernel for CUDA tensors and takes ``render_tiles_plain`` only
 for CPU tensors. Every bf16 instantiation runs the field MLP on the tensor
 cores (``csrc/mma_mlp.cuh``), every f32 one on the CUDA cores (the default
-and ``block_tiles`` schedules register-blocked, ``csrc/field_f32.cuh``).
+and ``block_tiles`` schedules register-blocked, ``csrc/field_f32.cuh``, on
+the live samples alone, packed into passes of 256; ``render_tiles_plain``'s
+``stats`` counts them).
 ``render_tiles_timed`` launches the kernel's timed instantiation (CUDA
 only, either dtype), which also returns where each tile's clock cycles
 went.
@@ -40,9 +42,14 @@ T2 = 256          # rays per 16x16 tile
 PACK_FAST = 16    # candidate rows: p_def(3) p_ori(3) F^-1(9) valid(1)
 MODES = ("deformed", "static", "cut")
 # the columns of render_tiles_timed's cycles: the phases, then the tile's
-# total cycles and its start and end on the global timer (ns)
+# total cycles and its start and end on the global timer (ns), then the
+# points the f32 MLP evaluated and the passes of 256 it ran
 SPLIT_PHASES = ("staging", "scan", "blend", "mlp", "composite")
-SPLIT_COLS = len(SPLIT_PHASES) + 3
+SPLIT_COUNTS = ("points", "passes")
+SPLIT_COLS = len(SPLIT_PHASES) + 3 + len(SPLIT_COUNTS)
+# the f32 kernel's bound on one sample's sigma (expf(15) < 3.3e6), from
+# which it bounds a sample's optical depth (render_tiles_plain's "points")
+SIGMA_BOUND = 3.3e6
 
 
 def mode_of(deformed: bool, cut: bool) -> str:
@@ -266,7 +273,14 @@ def render_tiles_plain(
     empty-segment skip. Returns out [A, 8, 256] (r, g, b, depth, ws,
     dropped, 0, 0). When given, ``stats["segments"]`` counts the (tile,
     segment) pairs executed, the data-dependent work a bound on the
-    kernel's time is counted from.
+    kernel's time is counted from, and ``stats["points"]`` and
+    ``stats["passes"]`` the samples the f32 kernel's MLP evaluates and the
+    passes of 256 they take: per group of up to 4 samples of a sub-segment,
+    those with ``vmask`` on a ray whose transmittance at the group's start
+    (less the kernel's rounding margin, ``csrc/tile_kernel.cuh:live_from``)
+    is still >= T_thresh, and ceil(n / 256) passes for n of them. Given a
+    list under ``stats["groups"]``, each executed group appends (tile,
+    first sample, n).
 
     ``paired`` follows the reference's pending/drain schedule on the
     block-diagonal pack: each executed segment's pass evaluates its sigma
@@ -372,6 +386,9 @@ def render_tiles_plain(
         sg = torch.where(vmask, sigma * dscale, torch.zeros_like(sigma))
         tau = sg * tdt[:, None, None]
         csum = torch.cumsum(tau, dim=2)
+        if stats is not None:
+            _count_live(stats, idx, s * Ks, vmask, csum, cum[idx], dscale,
+                        tdt, T_thresh, Ks=Ks, Ksb=Ksb)
         c_before = cum[idx][..., None] + (csum - tau)
         T_prev = torch.exp(-c_before)
         wgt = torch.where(T_prev >= T_thresh,
@@ -406,6 +423,31 @@ def render_tiles_plain(
                 [(wp * rgb[i]).sum(2) for i in range(3)], 1)
     out[:, 5] = torch.where(active, dropped, 0).float()[:, None]
     return out[:A0]
+
+
+def _count_live(stats, idx, k_seg, vmask, csum, cum, dscale, dt_s, T_thresh,
+                *, Ks, Ksb):
+    """Add one executed segment's live points and MLP passes (the f32
+    kernel's compaction) to ``stats``: the segment from sample k_seg of
+    tiles idx [n], vmask, csum [n, T2, Ks], cum [n, T2] before the
+    segment, dt_s [n]."""
+    tau_max = (SIGMA_BOUND * dscale) * dt_s                         # [n]
+    bounded = (tau_max >= 0) & (tau_max < float("inf"))
+    for k0 in range(Ks):
+        if (k0 % Ksb) % 4:
+            continue                          # not a group's first sample
+        nk = min(4, Ksb - k0 % Ksb)
+        S = csum[..., k0 - 1] if k0 else torch.zeros_like(cum)
+        lo = S - (S + tau_max[:, None]) * 2.0 ** -21
+        lo = torch.where(lo > 0, lo, torch.zeros_like(lo))
+        dead = bounded[:, None] & (torch.exp(-(cum + lo)) < T_thresh)
+        n = (vmask[..., k0:k0 + nk] & ~dead[..., None]).sum((1, 2))
+        stats["points"] = stats.get("points", 0) + int(n.sum())
+        stats["passes"] = stats.get("passes", 0) + int(
+            ((n + T2 - 1) // T2).sum())
+        if "groups" in stats:
+            stats["groups"] += [(int(a), k_seg + k0, int(c))
+                                for a, c in zip(idx, n)]
 
 
 def render_tiles(
@@ -470,24 +512,41 @@ def render_tiles_timed(
     """The tile kernel's timed instantiation (f32 or bf16, the default
     schedule, deformed or cut mode, either width) on CUDA tensors -> (out,
     cycles).
-    ``out`` equals ``render_tiles``'s bit for bit; ``cycles`` [A, 8, 8]
-    int64 holds, per tile and warp, the clock64() cycles of the five
-    phases (window staging, scan, bend and blend, MLP, composite with the
-    segment's early exit), the tile's total cycles, and its start and end
-    on the global nanosecond timer; zeros for an inactive slot. A
-    measurement for ``chip_smoke.py``; it counts no launch."""
+    ``out`` equals ``render_tiles``'s bit for bit; ``cycles`` [A, 8,
+    SPLIT_COLS] int64 holds, per tile and warp, the clock64() cycles of the
+    five phases (window staging, scan, bend and blend, MLP with the f32
+    path's compaction, composite with the segment's early exit), the
+    tile's total cycles, its start and end on the global nanosecond timer,
+    and the points the f32 MLP evaluated and the passes of 256 it ran (0
+    in bf16); zeros for an inactive slot. A library built before the
+    counts (``split_cols``) fills the first 8 columns only. A measurement
+    for ``chip_smoke.py``; it counts no launch."""
     if tile_sc.device.type != "cuda":
         raise ValueError("render_tiles_timed runs on CUDA tensors only")
     _check_shapes(cand, bin_start, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn,
                   num_seek=num_seek, block_tiles=1)
     wd = check_kernel_spec(spec, packed_w, allow_paired=False)
+    cols = split_cols(_build.library("tile_timed"))
     cycles = torch.zeros((tile_sc.shape[0], T2 // 32, SPLIT_COLS),
                          dtype=torch.int64, device=tile_sc.device)
+    # a library without the counts writes [A, 8, cols]: launch on a buffer
+    # of that shape, then copy it in
+    rec = cycles if cols == SPLIT_COLS else cycles[..., :cols].contiguous()
     out = _launch("tile_timed", "pienerf_render_tiles_timed", spec, packed_w,
                   tile_sc, bin_start, params, dirs, cand, 1, False, wd,
-                  cycles, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
+                  rec, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
                   deformed=True, cut=cut)
+    if rec is not cycles:
+        cycles[..., :cols] = rec
     return out, cycles
+
+
+def split_cols(lib) -> int:
+    """The columns of a timed library's record: its
+    ``pienerf_render_tiles_split_cols()``, or 8 for one built before the
+    f32 path's counts (which has no such entry)."""
+    fn = getattr(lib, "pienerf_render_tiles_split_cols", None)
+    return len(SPLIT_PHASES) + 3 if fn is None else int(fn())
 
 
 def _check_shapes(cand, bin_start, *, K, Ks, Ksb, Wn, num_seek,

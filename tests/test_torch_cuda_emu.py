@@ -327,6 +327,25 @@ inline void emu_bulk_wait_read(int n) {
     f.groups.erase(f.groups.begin());
   }
 }
+// __ballot_sync: each lane sets its bit and arrives at the warp barrier,
+// whose completion step (all 32 lanes arrived) publishes the mask and
+// clears the bits for the next ballot; a lane reads the mask before it can
+// arrive at the next barrier, which no completion step passes before then
+inline unsigned emu_ballot_bits[32], emu_ballot_mask[32];
+struct EmuBallotStep {
+  int w;
+  void operator()() noexcept {
+    emu_ballot_mask[w] = emu_ballot_bits[w];
+    emu_ballot_bits[w] = 0;
+  }
+};
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int w = threadIdx.x / 32;
+  if (p) emu_ballot_bits[w] |= 1u << (threadIdx.x % 32);
+  emu_arrive_and_wait(emu_warp_bar[w], EmuBallotStep{w});
+  return emu_ballot_mask[w];
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __syncthreads_or(int p) {
   int& slot = emu_fibers[threadIdx.x].gen;
   const int g = slot;
@@ -2178,6 +2197,162 @@ def test_emulated_timed_tile_kernel_equals_untimed(libs, mode, wd, dtype):
     assert (c[..., :n_ph].sum(-1) <= c[..., n_ph]).all()
     assert (c[..., n_ph + 2] > c[..., n_ph + 1]).all()
     assert not cyc[~active].any()
+
+
+def _compaction_tile_inputs(mode, Ksb=4):
+    """Seven tiles whose sample groups (up to 4 samples of every ray, the
+    f32 kernel's unit of compaction) hold as many live samples as the
+    compaction has cases, K = 16 in two segments, from (0, 0, -2.5) into
+    the box [-1, 1]^3, every bin holding candidates, ip_dx 100 (every
+    sample with a row in reach is found), T_thresh 0.5:
+
+    0  every ray misses the box: no live slot, no MLP pass
+    1  every ray in range and a short march (dt 0.005): every group full,
+       1,024 live slots
+    2  64 rays in range and one (ray 64) that leaves the box between its
+       first and second sample: its first group 257 live slots (a second
+       pass of one point), the rest miss
+    3  a long march (dt 0.1125) at density scale 4: rays die in the middle
+       of groups, their later groups not live
+    4  every candidate row with p_ori +-3e38 and F^-1 0 (the bending modes'
+       blend overflows: NaN and infinite bent positions, found) and a NaN
+       direction on ray 7
+    5  half the rays in range, half missing
+    6  directions up to 0.6 off the axis: rays leave the box mid-march
+    With block_tiles 3 the blocks hold tiles of different counts."""
+    rng = np.random.RandomState(11)
+    A, K, Wn = 7, 16, 16
+    P = 2 * Wn
+    inside = np.stack([rng.uniform(-0.1, 0.1, (A, ttk.T2)),
+                       rng.uniform(-0.1, 0.1, (A, ttk.T2)),
+                       np.ones((A, ttk.T2))], 1)
+    away = np.stack([rng.uniform(-1, 1, (A, ttk.T2)),
+                     rng.uniform(-1, 1, (A, ttk.T2)),
+                     -np.ones((A, ttk.T2))], 1)
+    d = inside.copy()
+    d[0] = away[0]
+    d[2, :, 65:] = away[2, :, 65:]
+    d[2, :, 64] = (1 / 2.06, 0.0, np.sqrt(1 - (1 / 2.06) ** 2))
+    d[5, :, 128:] = away[5, :, 128:]
+    d[6, 0:2] = rng.uniform(-0.6, 0.6, (2, ttk.T2))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dirs = np.zeros((A, 8, ttk.T2), np.float32)
+    dirs[:, :3] = d
+    dirs[4, :3, 7] = np.nan
+    tile_sc = np.zeros((A, 8), np.float32)
+    tile_sc[:, 0], tile_sc[:, 1], tile_sc[:, 2] = 1.6, 3.4, 1.0
+    tile_sc[1, 0:2] = (2.0, 2.08)
+    tile_sc[2, 0:2] = (2.0, 3.0)
+    p_def = np.stack([rng.uniform(-0.3, 0.3, (A, P)),
+                      rng.uniform(-0.3, 0.3, (A, P)),
+                      rng.uniform(-0.9, 0.9, (A, P))], -1)
+    cand = np.zeros((A, P, 16), np.float32)
+    cand[..., 0:3] = p_def
+    cand[..., 3:6] = p_def + rng.normal(0.0, 0.02, (A, P, 3))
+    cand[..., 6:15] = np.eye(3).ravel()
+    cand[..., 15] = 1.0
+    cand[4, :, 3:6] = np.where(np.arange(P) % 2 == 0, 3e38, -3e38)[:, None]
+    cand[4, :, 6:15] = 0.0
+    counts = rng.randint(1, 4, (A, K + 2))
+    bs = np.zeros((A, K + 4), np.int32)
+    bs[:, 1:K + 3] = np.minimum(np.cumsum(counts, 1), P)
+    bs[:, K + 3] = bs[:, K + 2]
+    params = np.zeros(24, np.float32)
+    params[0:3] = (0.0, 0.0, -2.5)
+    params[3:6], params[6:9] = -1.0, 1.0            # march bbox
+    params[9] = 0.5                                  # T_thresh
+    params[10] = 4.0                                 # density scale
+    params[11] = 100.0                               # ip_dx
+    params[12] = 0.05                                # min_near
+    params[13:19] = (-0.1, 0.5, -0.5, 0.5, -0.3, 0.6)  # cut box
+    params[19] = 0.5                                 # t_jitter
+    params[20] = 0.25                                # reach
+    args = tuple(torch.from_numpy(np.ascontiguousarray(t)) for t in
+                 (tile_sc, bs, params, dirs, cand))
+    kw = dict(K=K, Ks=8, Ksb=Ksb, Wn=Wn, num_seek=3,
+              deformed=mode != "static", cut=mode == "cut")
+    return args, kw
+
+
+def _live_groups(spec, pw, args, kw, T_thresh=None):
+    """The plain twin's count of each executed group's live samples:
+    {(tile, first sample): n} and its stats; T_thresh 0 counts as if no
+    ray died."""
+    if T_thresh is not None:
+        params = args[2].clone()
+        params[9] = T_thresh
+        args = args[:2] + (params,) + args[3:]
+    st = {"groups": []}
+    ttk.render_tiles_plain(spec, pw, *args, **kw, stats=st)
+    return {(a, k): n for a, k, n in st.pop("groups")}, st
+
+
+@pytest.mark.parametrize("schedule", ["default", "block"])
+@pytest.mark.parametrize("mode", ["deformed", "static", "cut"])
+@pytest.mark.parametrize("wd", [64, 128])
+def test_emulated_f32_tile_compaction_equals_marching_every_sample(
+        libs, wd, mode, schedule):
+    """The f32 kernel runs only each group's live samples through the MLP,
+    packed into passes of 256 points; marching every sample
+    (TILE_REF_KERNEL) gives the same output bit for bit, in every mode at
+    both widths, one tile a block and three, on crafted groups: none live
+    (no pass, no deadlock), all 1,024 live, 257 live (a second pass of
+    one point), rays that die inside a group, rays that miss the box, NaN
+    and infinite bent positions, and blocks whose tiles differ in count."""
+    spec, pw = _weights(wd, 5)
+    args, kw = _compaction_tile_inputs(mode)
+    B = 3 if schedule == "block" else 1
+    out = _tile_run(libs, spec, pw, args, kw, block_tiles=B)
+    ref = _tile_ref_run(libs, spec, pw, args, kw, block_tiles=B)
+    np.testing.assert_array_equal(out, ref)
+    # the groups are as crafted
+    groups, _ = _live_groups(spec, pw, args, kw)
+    per_tile = {a: [n for (t, _), n in groups.items() if t == a]
+                for a in range(7)}
+    assert per_tile[0] and not any(per_tile[0])
+    assert per_tile[1] == [1024] * 4
+    assert groups[2, 0] == 257
+    undead, _ = _live_groups(spec, pw, args, kw, T_thresh=0.0)
+    assert sum(per_tile[3]) < sum(n for (t, _), n in undead.items()
+                                  if t == 3)
+    assert 0 < sum(per_tile[5]) <= 512 * len(per_tile[5])
+    # the non-finite bent positions go through the MLP (whose ReLU takes
+    # NaN to 0) as the reference's do
+    assert sum(per_tile[4]) > 0 and ref[:, 4].max() > 0.3
+
+
+@pytest.mark.parametrize("inputs", ["frame", "crafted"])
+@pytest.mark.parametrize("mode,wd", [("deformed", 64), ("cut", 64),
+                                     ("deformed", 128), ("cut", 128)])
+def test_emulated_timed_tile_kernel_counts_live_points(libs, mode, wd,
+                                                       inputs):
+    """The f32 timed instantiation's count of the points its MLP evaluated
+    and the passes it ran, per tile (the same in every warp's record),
+    against the plain twin's: a group's samples with vmask on a ray still
+    alive at the group's start, summed over the executed groups, and
+    ceil(n / 256) passes a group. bf16 counts nothing. The crafted tile of
+    NaN bent positions is left out here: the plain twin's ReLU keeps a NaN
+    that the kernel's fmaxf takes to 0, so the two disagree on when its
+    rays die (the kernel's output on it is held to the reference's in
+    test_emulated_f32_tile_compaction_equals_marching_every_sample)."""
+    spec, pw = _weights(wd, 3)
+    if inputs == "frame":
+        args, kw = _tile_inputs(mode)
+    else:
+        args, kw = _compaction_tile_inputs(mode)
+        keep = torch.tensor([0, 1, 2, 3, 5, 6])
+        args = tuple(a if i == 2 else a[keep].contiguous()
+                     for i, a in enumerate(args))
+    _, cyc = _tile_run(libs, spec, pw, args, kw, timed=True)
+    _, st = _live_groups(spec, pw, args, kw)
+    col = len(ttk.SPLIT_PHASES) + 3
+    assert (cyc[..., col:] == cyc[:, :1, col:]).all()
+    assert st["points"] > 0
+    assert int(cyc[:, 0, col].sum()) == st["points"]
+    assert int(cyc[:, 0, col + 1].sum()) == st["passes"]
+    _, cyc16 = _tile_run(libs, spec._replace(compute_dtype="bfloat16"), pw,
+                         args, kw, timed=True)
+    assert not cyc16[..., col:].any()
 
 
 def _fetch_run(libs, which, table, idx):

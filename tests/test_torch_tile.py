@@ -154,4 +154,5 @@ def test_render_tiles_timed_runs_on_the_card_only():
     with pytest.raises(ValueError, match="num_seek"):
         ttk._check_shapes(args[4], args[1], **dict(kw, num_seek=4),
                           block_tiles=1)
-    assert ttk.SPLIT_COLS == len(ttk.SPLIT_PHASES) + 3 == 8
+    assert ttk.SPLIT_COLS == (len(ttk.SPLIT_PHASES) + 3
+                             + len(ttk.SPLIT_COUNTS)) == 10
