@@ -9,10 +9,11 @@ controls, judged the same way against that reference: the reference in the
 program's place with its f32 products in TF32, the nearest precision below
 the configuration's true f32, in the drag and the frames (``tf32``) or in
 the frames alone from the f32 state (``tf32_render``); and the program's
-own bf16 field path (``bf16``). One JSON line a seed on standard output,
-then the largest sound reading and the smallest control reading of each
-number. ``--control_seeds N`` reads the controls on the first N seeds
-only.
+own bf16 field path (``bf16``), which exists for the Fourier-MLP field
+alone: for any other backbone it is skipped and named on standard error.
+One JSON line a seed on standard output, then the largest sound reading
+and the smallest control reading of each number. ``--control_seeds N``
+reads the controls on the first N seeds only.
 """
 
 import json
@@ -65,6 +66,12 @@ def main() -> None:
     rows = []
     n_ctl = len(args.seeds) if args.control_seeds is None else \
         args.control_seeds
+    bf16 = cellmod.load("configs", wl["config"])["field"].get(
+        "backbone", "mlp") == "mlp"
+    if not bf16:
+        print(f"calibrate: control bf16 skipped for {wl['config']}: the "
+              "program's bf16 path runs the Fourier-MLP field alone",
+              file=sys.stderr)
     for i, seed in enumerate(args.seeds):
         inp = cellmod.make_inputs(wl["config"], wl["traffic"], seed)
         ddof, pack, items = _program_sample(cellmod, inp, dev, seed)
@@ -84,9 +91,11 @@ def main() -> None:
             row[name] = check.compare(ref, c.ddof.cpu().numpy(),
                                       c.pack.cpu().numpy(), c_items)
         del ctl, c
-        b_ddof, b_pack, b_items = _program_sample(
-            cellmod, inp, dev, seed, dtype="bfloat16", poses_idx=poses_idx)
-        row["bf16"] = check.compare(ref, b_ddof, b_pack, b_items)
+        if bf16:
+            b_ddof, b_pack, b_items = _program_sample(
+                cellmod, inp, dev, seed, dtype="bfloat16",
+                poses_idx=poses_idx)
+            row["bf16"] = check.compare(ref, b_ddof, b_pack, b_items)
         del ref
         torch.cuda.empty_cache()
         rows.append(row)
@@ -97,7 +106,8 @@ def main() -> None:
         "sound_max": {n: max(r["sound"][n] for r in rows) for n in names},
         **{f"{c}_min": {n: min(r[c][n] for r in rows if c in r)
                         for n in names}
-           for c in ("tf32", "tf32_render", "bf16")}}), flush=True)
+           for c in ("tf32", "tf32_render", "bf16")
+           if any(c in r for r in rows)}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -7,13 +7,25 @@ Everything a cell needs beyond this code is data: ``configs/<config>.json``
 (the set-up drag, the camera orbit, the correctness sample) and
 ``limits/<workload>.json`` (the correctness limits). The program is
 ``pienerf_tpu_torch``; this module imports it only inside ``Program``.
+
+The field's architecture is the configuration's ``field.backbone``:
+``mlp`` (where absent) is the bias-free Fourier MLP, its weights the
+committed checkpoint's (``checkpoint``, ``width``, ``n_freqs``);
+``hashgrid`` is torch-ngp's hash-grid field (``grid``: num_levels,
+level_dim, base_resolution, log2_hashmap_size, desired_resolution;
+``width``, ``sigma_layers``, ``color_layers``), its weights fitted to the
+committed field as ``fit`` says (``reference/fit.py``) and cached under
+``.cache/fit``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
+import subprocess
+import sys
 import time
 from contextlib import nullcontext
 from typing import Dict, List, NamedTuple, Optional
@@ -23,6 +35,8 @@ import numpy as np
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(BENCH_DIR)
 SIM_CACHE = os.path.join(BENCH_DIR, ".cache", "sim_init")
+FIT_CACHE = os.path.join(BENCH_DIR, ".cache", "fit")
+FIT_CODE = ("fit.py", "hashgrid.py", "render.py")     # under reference/
 
 
 def load(kind: str, name: str) -> dict:
@@ -63,7 +77,8 @@ class Inputs(NamedTuple):
     pin: np.ndarray             # [n] bool
     sim_kw: dict                # sim_init's scalars (no device)
     spring: dict                # radius, gain, clamp, rate, phase (rad)
-    layers: Dict[str, list]     # {"sigma_net", "color_net"}: [in, out] f32
+    layers: Dict[str, list]     # {"sigma_net", "color_net"}: [in, out] f32,
+                                # and "encoder": [table [rows, C]] (hashgrid)
     poses: np.ndarray           # [n_poses, 4, 4] camera-to-world, in order
     intr: tuple                 # fx, fy, cx, cy
     cut_bounds: Optional[list]  # [6] in cut mode
@@ -90,17 +105,25 @@ def _points(scene: dict, cut_bounds) -> tuple:
     return pts, pin
 
 
+def _checkpoint(path: str) -> Dict[str, list]:
+    """A committed checkpoint's 64-wide EMA Fourier MLP."""
+    with np.load(os.path.join(REPO, path)) as z:
+        return {k: [np.asarray(z[f"ema_params/{k}.{i}"], np.float32)
+                    for i in range(n)]
+                for k, n in (("sigma_net", 4), ("color_net", 3))}
+
+
 def _layers(cfg: dict) -> Dict[str, list]:
-    """The committed checkpoint's EMA field; at the 128-wide student's
-    width it is embedded there (per axis the encoding rows [x, sin 0..7,
-    cos 0..7] at their places in [x, sin 0..9, cos 0..9]) and every weight
-    the embedding leaves zero is drawn from the configuration's
-    ``fill_seed`` at ``fill_scale`` of the Kaiming-uniform bound."""
+    """The field's weights. Backbone mlp: the committed checkpoint's EMA
+    field; at the 128-wide student's width it is embedded there (per axis
+    the encoding rows [x, sin 0..7, cos 0..7] at their places in [x, sin
+    0..9, cos 0..9]) and every weight the embedding leaves zero is drawn
+    from the configuration's ``fill_seed`` at ``fill_scale`` of the
+    Kaiming-uniform bound. Backbone hashgrid: ``fitted_field``."""
     fc = cfg["field"]
-    with np.load(os.path.join(REPO, fc["checkpoint"])) as z:
-        net = {k: [np.asarray(z[f"ema_params/{k}.{i}"], np.float32)
-                   for i in range(n)]
-               for k, n in (("sigma_net", 4), ("color_net", 3))}
+    if fc.get("backbone", "mlp") == "hashgrid":
+        return fitted_field(fc, cfg["render"]["bound"])
+    net = _checkpoint(fc["checkpoint"])
     if fc["width"] == 64:
         return net
     wd, nf = fc["width"], fc["n_freqs"]
@@ -124,6 +147,84 @@ def _layers(cfg: dict) -> Dict[str, list]:
     return {k: [np.where(w != 0.0, w, fc["fill_scale"] * np.sqrt(
         3.0 / w.shape[0]) * rng.uniform(-1.0, 1.0, w.shape)).astype(
             np.float32) for w in ws] for k, ws in emb.items()}
+
+
+def _sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _fit_key(fc: dict, bound: float, kind: str) -> str:
+    """The fit's cache key: the field entry, the bound, the device's name,
+    the torch version, and the SHA-256 of the teacher and of the code that
+    fits (``FIT_CODE``)."""
+    import torch
+
+    code = {f: _sha256(os.path.join(BENCH_DIR, "reference", f))
+            for f in FIT_CODE}
+    return hashlib.sha256(json.dumps(
+        {"field": fc, "bound": bound, "device": kind,
+         "torch": torch.__version__, "code": code,
+         "teacher": _sha256(os.path.join(REPO, fc["fit"]["teacher"]))},
+        sort_keys=True).encode()).hexdigest()[:32]
+
+
+def fitted_field(fc: dict, bound: float, cache_dir: Optional[str] = None
+                 ) -> Dict[str, list]:
+    """The hash-grid field ``fc`` describes, fitted to its teacher
+    (``fit.teacher``, a committed checkpoint) on the card where there is
+    one, else on the CPU. Cached under ``_fit_key``: only the first run
+    of a checkout pays for the fit. The fit runs in a child process that
+    sets cuBLAS's deterministic workspace before its first product, as
+    ``torch.use_deterministic_algorithms`` asks; the child prints the
+    fit's seconds and the table's SHA-256."""
+    import torch
+
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    cache_dir = cache_dir or FIT_CACHE
+    path = os.path.join(cache_dir, _fit_key(fc, bound, kind) + ".npz")
+    if not os.path.exists(path):
+        os.makedirs(cache_dir, exist_ok=True)
+        subprocess.run(
+            [sys.executable, "-m", "benchmark.cell", "fit",
+             json.dumps({"field": fc, "bound": bound, "device": device}),
+             path], cwd=REPO, check=True,
+            env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    with np.load(path) as z:
+        return {k: [z[f"{k}.{i}"] for i in range(n)] for k, n in (
+            ("encoder", 1), ("sigma_net", fc["sigma_layers"]),
+            ("color_net", fc["color_layers"]))}
+
+
+def _fit_main(spec_json: str, path: str) -> None:
+    """The child of ``fitted_field``: fit, write ``path``, print the
+    fit's seconds, its device memory peak and the table's SHA-256 on
+    standard error."""
+    import torch
+
+    from benchmark.reference import fit, hashgrid
+
+    spec = json.loads(spec_json)
+    fc, dev = spec["field"], torch.device(spec["device"])
+    teacher = _checkpoint(fc["fit"]["teacher"])
+    t0 = time.perf_counter()
+    out = fit.fit((teacher["sigma_net"], teacher["color_net"]),
+                  spec["bound"], hashgrid.layout(**fc["grid"]), fc["width"],
+                  fc["sigma_layers"], fc["color_layers"], fc["fit"], dev)
+    arrays = {f"{k}.{i}": w.cpu().numpy() for k, ws in out.items()
+              for i, w in enumerate(ws)}
+    fit_s = time.perf_counter() - t0
+    part = path[:-len(".npz")] + ".part.npz"
+    with open(part, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(part, path)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    print(json.dumps({"fit_s": fit_s, "device": str(dev),
+                      "memory_peak_bytes": peak, "table_sha256":
+                      hashlib.sha256(arrays["encoder.0"].tobytes())
+                      .hexdigest()}), file=sys.stderr, flush=True)
 
 
 def orbit_poses(distance: float, elevation_deg: float, n: int,
@@ -197,7 +298,7 @@ class Program:
         import torch
 
         from pienerf_tpu_torch.kernels import field as field_kernel
-        from pienerf_tpu_torch.models import network
+        from pienerf_tpu_torch.models import hash_encoder, network
         from pienerf_tpu_torch.ops import beam_bend
         from pienerf_tpu_torch.render import interactive
         from pienerf_tpu_torch.sim import solver as sim
@@ -220,10 +321,18 @@ class Program:
             state = sim.sim_step(consts, state)
         self.consts, self.state = consts, state
         fc = cfg["field"]
-        spec = network.make_spec(
-            bound=rd["bound"], compute_dtype=dtype or cfg["dtype"],
-            n_freqs=fc["n_freqs"], hidden_dim=fc["width"],
-            hidden_dim_color=fc["width"])
+        if fc.get("backbone", "mlp") == "hashgrid":
+            spec = network.make_spec(
+                bound=rd["bound"], compute_dtype=dtype or cfg["dtype"],
+                backbone="hashgrid", hidden_dim=fc["width"],
+                hidden_dim_color=fc["width"], num_layers=fc["sigma_layers"],
+                num_layers_color=fc["color_layers"])
+            spec = spec._replace(grid=hash_encoder.make_spec(**fc["grid"]))
+        else:
+            spec = network.make_spec(
+                bound=rd["bound"], compute_dtype=dtype or cfg["dtype"],
+                n_freqs=fc["n_freqs"], hidden_dim=fc["width"],
+                hidden_dim_color=fc["width"])
         self.pw = field_kernel.pack_weights(inp.layers, spec, device)
         bst = beam_bend.BeamBendSettings(
             num_seek_ip=rd["num_seek"], max_iter_num=1,
@@ -287,3 +396,9 @@ def per_layer_names(spec: dict, cell: str) -> List[str]:
     ``workloads`` key, and those that list it."""
     return [m["name"] for m in spec["per_layer"]
             if "workloads" not in m or cell in m["workloads"]]
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["fit"] or len(sys.argv) != 4:
+        sys.exit("usage: python -m benchmark.cell fit <field JSON> <out.npz>")
+    _fit_main(sys.argv[2], sys.argv[3])

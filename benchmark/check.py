@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from benchmark.cell import Inputs, material
+from benchmark.reference import hashgrid
 from benchmark.reference import render as ref_render
 from benchmark.reference import sim as ref_sim
 
@@ -64,7 +65,9 @@ def matmul_precision(tf32: bool):
 
 
 def settings(inp: Inputs) -> ref_render.Settings:
-    rd = inp.cfg["render"]
+    rd, fc = inp.cfg["render"], inp.cfg["field"]
+    backbone = fc.get("backbone", "mlp")
+    mlp = backbone == "mlp"
     return ref_render.Settings(
         samples=rd["K"], num_seek=rd["num_seek"],
         ip_dx=rd["ip_dx_factor"] * inp.cfg["scene"]["lattice"],
@@ -73,7 +76,9 @@ def settings(inp: Inputs) -> ref_render.Settings:
         min_near=rd["min_near"], T_thresh=rd["T_thresh"],
         tighten=rd["tighten"], cut=rd["cut"], bound=rd["bound"],
         cut_static_frac=rd["cut_static_frac"],
-        n_freqs=inp.cfg["field"]["n_freqs"], dtype=inp.cfg["dtype"])
+        n_freqs=fc["n_freqs"] if mlp else 0, dtype=inp.cfg["dtype"],
+        backbone=backbone,
+        grid=None if mlp else hashgrid.layout(**fc["grid"]))
 
 
 class Reference:
@@ -100,6 +105,8 @@ class Reference:
         self.layers = tuple([torch.as_tensor(w, device=device)
                              for w in inp.layers[k]]
                             for k in ("sigma_net", "color_net"))
+        self.table = (torch.as_tensor(inp.layers["encoder"][0], device=device)
+                      if "encoder" in inp.layers else None)
         self.cut_box = (None if inp.cut_bounds is None else torch.tensor(
             inp.cut_bounds, dtype=torch.float32, device=device))
         self._frames: Dict[int, tuple] = {}
@@ -115,7 +122,8 @@ class Reference:
         with matmul_precision(self.tf32), torch.no_grad():
             img, ctr = ref_render.render_frame(
                 self.st, self.layers, self.pack, self.p_def, pose,
-                self.inp.intr, rd["H"], rd["W"], 1.0, self.cut_box, passes)
+                self.inp.intr, rd["H"], rd["W"], 1.0, self.cut_box, passes,
+                self.table)
         self._frames[pose_idx] = (img.cpu().numpy(), ctr.cpu().numpy())
         return self._frames[pose_idx]
 

@@ -1,6 +1,8 @@
 """Plain reference of the viewer's fused frame: the per-IP pack, tile
 activity and compaction (with the cut split), candidate prep, and the tile
-renderer with the field MLP in plain PyTorch.
+renderer with the field in plain PyTorch: the Fourier MLP (backbone
+``mlp``) or torch-ngp's hash-grid field (backbone ``hashgrid``,
+``hashgrid.py``), by the configuration's backbone.
 
 A frozen copy of the plain code of the program's fused path (its pack,
 ``render_frame_fused``, ``prep_candidates`` and ``render_tiles_plain`` in
@@ -9,7 +11,10 @@ matrices instead of the program's packed tiles. It imports nothing of the
 program under test and nothing of JAX. ``Pass`` records, for each tile
 pass, what these inputs need of a renderer: the samples the field is
 needs evaluated at, the (sample, window row) pairs its bends scan, and the
-bytes of the pass's inputs and outputs. A sample is needed where it can
+bytes of the pass's inputs and outputs; with the hash grid also the
+encoding's operations at the needed samples and the bytes of the distinct
+table rows their corners read (each has to be read at least once). A
+sample is needed where it can
 change the output: its ray hits the box, it lies in [near, far] and its
 ray's transmittance before it is still at or above ``T_thresh`` (in cut
 mode a bend also needs the sample inside the cut box, and a field
@@ -22,6 +27,8 @@ import math
 from typing import List, NamedTuple, Optional
 
 import torch
+
+from . import hashgrid
 
 T2 = 256          # rays per 16x16 tile
 TILE = 16
@@ -47,6 +54,8 @@ class Settings(NamedTuple):
     dtype: str = "float32"   # the field's: float32 or bfloat16
     seg_samples: int = 8
     bend_sub: int = 4
+    backbone: str = "mlp"    # the field's encoding: mlp or hashgrid
+    grid: Optional[hashgrid.Grid] = None     # hashgrid's table layout
 
     @property
     def reach(self) -> float:
@@ -64,6 +73,8 @@ class Pass(NamedTuple):
     samples: int           # field evaluations the output needs
     bend_rows: int         # (needed bend, live window row) pairs
     bytes: int             # inputs read once and outputs written once
+    grid_flops: int = 0    # the hash encoding's operations (f32)
+    grid_bytes: int = 0    # distinct table rows read, x C x 4 B
 
 
 # ---------------------------------------------------------------------------
@@ -386,12 +397,14 @@ def _bend_segment(x, cand, bs, halo, k_seg, ip_dx, K, Ksb, Wn, num_seek):
 
 
 def render_tiles(st, layers, tile_sc, bin_start, params, dirs, cand, *,
-                 deformed, cut, work):
+                 deformed, cut, work, table=None):
     """One tile pass -> out [A, 8, 256] (r, g, b, depth, ws, dropped, 0,
     0): per early-exit segment of Ks samples, the bend (deformed and cut
     modes; cut keeps it strictly inside the cut box), the field and the
     front-to-back composite while the transmittance stays >= T_thresh.
-    ``work`` adds the needed samples and bend rows (module docstring)."""
+    ``work`` adds the needed samples and bend rows (module docstring),
+    and with a ``seen`` row mask the table rows and operations of the hash
+    encoding at them. ``table``: the hash grid's [rows, C]."""
     K = st.samples
     Ks = st.seg_samples if K % st.seg_samples == 0 else next(
         k for k in (16, 8, 4, 2, 1) if K % k == 0)
@@ -459,7 +472,10 @@ def render_tiles(st, layers, tile_sc, bin_start, params, dirs, cand, *,
         else:
             xm = x
             found = torch.ones((n, T2, Ks), dtype=torch.bool, device=dev)
-        enc = freq_encode(xm, st.n_freqs, st.bound)
+        if st.backbone == "hashgrid":
+            enc = hashgrid.encode(table, st.grid, xm, st.bound)
+        else:
+            enc = freq_encode(xm, st.n_freqs, st.bound)
         shs = sh[:, idx][..., None].expand(16, n, T2, Ks).reshape(16, -1)
         sigma, rgb = field(layers, enc, shs, st.dtype)
         sigma = sigma.reshape(n, T2, Ks)
@@ -475,6 +491,11 @@ def render_tiles(st, layers, tile_sc, bin_start, params, dirs, cand, *,
         wgt = torch.where(lit, (1.0 - torch.exp(-tau)) * T_prev,
                           torch.zeros_like(tau))
         work["samples"] += int((vmask & lit).sum())
+        if "seen" in work:
+            need = vmask & lit
+            n_in = hashgrid.touch(work["seen"], st.grid,
+                                  [c[need] for c in xm], st.bound)
+            work["grid_flops"] += hashgrid.flops_per_sample(st.grid) * n_in
         if deformed:
             bent = (in_range & lit & in_cut).reshape(n, T2, Ks // Ksb, Ksb)
             work["bend_rows"] += int((bent.sum(dim=(1, 3)) * live).sum())
@@ -488,7 +509,7 @@ def render_tiles(st, layers, tile_sc, bin_start, params, dirs, cand, *,
 
 
 def _tile_pass(st, layers, pack, p_def, o, pose, intr, H, W, ids, mask,
-               bbmin, bbmax, *, deformed, cut, cut_box, passes):
+               bbmin, bbmax, *, deformed, cut, cut_box, passes, table):
     """Candidate prep and one tile pass over a compacted slot list; the
     pass's work goes to ``passes``. Returns (imgs [A, T2, 3], depths, wss,
     dropped_beam, dropped_window)."""
@@ -531,8 +552,11 @@ def _tile_pass(st, layers, pack, p_def, o, pose, intr, H, W, ids, mask,
     params[19] = 0.5
     params[20] = st.reach
     work = {"samples": 0, "bend_rows": 0}
+    if st.backbone == "hashgrid":
+        work.update(grid_flops=0, seen=torch.zeros(
+            (st.grid.rows,), dtype=torch.bool, device=dev))
     out = render_tiles(st, layers, tile_sc, bin_start, params, dirs, cand,
-                       deformed=deformed, cut=cut, work=work)
+                       deformed=deformed, cut=cut, work=work, table=table)
     # the pass reads its slots' scalars, the frame's params, the rays, the
     # weights and, when it bends, the candidates and their bin counts; it
     # writes one [8, 256] row a slot
@@ -540,10 +564,13 @@ def _tile_pass(st, layers, pack, p_def, o, pose, intr, H, W, ids, mask,
     nbytes = (sum(t.numel() * t.element_size() for t in read)
               + sum(w.numel() * 4 for net in layers for w in net)
               + out.numel() * 4)
+    grid_bytes = 0 if "seen" not in work else (
+        int(work["seen"].sum()) * st.grid.level_dim * table.element_size())
     passes.append(Pass(mode="static" if not deformed else
                        "cut" if cut else "deformed", slots=A,
                        samples=work["samples"], bend_rows=work["bend_rows"],
-                       bytes=nbytes))
+                       bytes=nbytes, grid_flops=work.get("grid_flops", 0),
+                       grid_bytes=grid_bytes))
     imgs = out[:, 0:3, :].transpose(1, 2)
     dropped_window = torch.where(mask, out[:, 5, 0], 0.0).sum()
     return imgs, out[:, 3, :], out[:, 4, :], dropped_beam, dropped_window
@@ -565,8 +592,10 @@ def _scatter(n_tiles, bg, parts):
 
 def render_frame(st: Settings, layers, pack, p_def, pose, intr, H, W, bg,
                  cut_box: Optional[torch.Tensor] = None,
-                 passes: Optional[List[Pass]] = None):
-    """The viewer's fused frame with the cut split in cut mode. Returns
+                 passes: Optional[List[Pass]] = None,
+                 table: Optional[torch.Tensor] = None):
+    """The viewer's fused frame with the cut split in cut mode (``table``:
+    the hash grid's, for that backbone). Returns
     (image [n_tiles, T2, 3] composited on ``bg``, counters [4] int64:
     n_active, dropped_beam, dropped_window, n_tile_overflow)."""
     passes = [] if passes is None else passes
@@ -588,11 +617,11 @@ def render_frame(st: Settings, layers, pack, p_def, pose, intr, H, W, bg,
         img_b, dep_b, ws_b, dr_beam, dr_win = _tile_pass(
             st, layers, pack, p_def, o, pose, intr, H, W, ids_b, mask_b,
             bbmin, bbmax, deformed=True, cut=True, cut_box=cut_box,
-            passes=passes)
+            passes=passes, table=table)
         img_s, dep_s, ws_s, _, _ = _tile_pass(
             st, layers, pack, p_def, o, pose, intr, H, W, ids_s, mask_s,
             bbmin, bbmax, deformed=False, cut=False, cut_box=None,
-            passes=passes)
+            passes=passes, table=table)
         frame, _, _ = _scatter(n_tiles, bg, [
             (ids_b, mask_b, img_b, dep_b, ws_b),
             (ids_s, mask_s, img_s, dep_s, ws_s)])
@@ -613,6 +642,7 @@ def render_frame(st: Settings, layers, pack, p_def, pose, intr, H, W, bg,
         hit, _cap(st.active_frac, n_tiles, st.tile_chunk), tids)
     img, dep, ws, dr_beam, dr_win = _tile_pass(
         st, layers, pack, p_def, o, pose, intr, H, W, ids, mask, bbmin,
-        bbmax, deformed=True, cut=False, cut_box=None, passes=passes)
+        bbmax, deformed=True, cut=False, cut_box=None, passes=passes,
+        table=table)
     frame, _, _ = _scatter(n_tiles, bg, [(ids, mask, img, dep, ws)])
     return frame, torch.stack([n_act, dr_beam, dr_win.to(torch.int64), ovf])

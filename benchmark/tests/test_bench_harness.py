@@ -209,6 +209,12 @@ def _imports(path):
             yield node.module
 
 
+def _relative_levels(path):
+    tree = ast.parse(open(path).read())
+    return [node.level for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.level > 0]
+
+
 def test_nothing_imports_jax_and_the_reference_nothing_of_the_program():
     bench = os.path.join(ROOT, "benchmark")
     for dirpath, _, files in os.walk(bench):
@@ -221,6 +227,8 @@ def test_nothing_imports_jax_and_the_reference_nothing_of_the_program():
             if os.sep + "reference" + os.sep in path:
                 assert tops <= {"__future__", "math", "typing", "numpy",
                                 "torch"}, (path, tops)
+                # a relative import reaches only the reference's own files
+                assert set(_relative_levels(path)) <= {1}, path
 
 
 def test_a_run_loads_no_jax_module():

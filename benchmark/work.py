@@ -9,8 +9,11 @@ A pass's operations are the field MLP's multiply-adds at every sample the
 reference evaluates (2 flops each, at the field dtype's peak) and, where
 it bends, 8 flops a (sample, live window row) pair for the squared
 distance and one compare a pair for each of the ``num_seek`` nearest-row
-passes, at the f32 peak. Its bytes are its inputs read once and its
-outputs written once (``reference.render.Pass``).
+passes, at the f32 peak; with a hash-grid field also the encoding's
+trilinear weights and interpolation (``grid_flops``, f32). Its bytes are
+its inputs read once and its outputs written once, and with a hash grid
+the distinct table rows its samples' corners read (``grid_bytes``;
+``reference.render.Pass``). Both are 0 for a Fourier-MLP field.
 """
 
 from __future__ import annotations
@@ -37,6 +40,6 @@ def least_seconds(passes: Iterable, macs: int, num_seek: int,
     total = 0.0
     for p in passes:
         op_s = (2.0 * macs * p.samples / mlp_peak(dtype)
-                + (8.0 + num_seek) * p.bend_rows / PEAK_F32)
-        total += max(op_s, p.bytes / PEAK_BYTES)
+                + ((8.0 + num_seek) * p.bend_rows + p.grid_flops) / PEAK_F32)
+        total += max(op_s, (p.bytes + p.grid_bytes) / PEAK_BYTES)
     return total
