@@ -19,6 +19,14 @@ entry points at full width on the trained checkpoint:
     frame with the field's plain version;
   main_gui as a user runs it: fused, --cut, at its default Newton depth,
     and on the 128-wide checkpoint;
+  torch-ngp's hash-grid field at its published widths (seeded weights):
+    main path 1 through its tile kernel (frame_hashgrid), then the kernel
+    in each mode on the checks' passes against its plain version, with
+    its device counters' readings and their cost, the kernel timed with
+    its counter buffer and without, in turns (tile_kernel_hashgrid_*);
+  the fused frame as a CUDA graph (render_frame_fused from its second
+    call) against the same frame op by op, bit for bit, with both's ms a
+    frame (frame_graph);
   the tile kernel's paired and block_tiles schedules: each against its
     plain version and, bit for bit, against the default schedule, then the
     bench frame through each;
@@ -323,6 +331,14 @@ def ptxas_report(log: str) -> list:
                 r"ILb(\d)E(?:Lb(\d)ELb(\d)ELb(\d)ELb(\d)E)?", name)
             bf16 = "mma" in name or bool(b and b.group(1) == "1")
             inst = dict(kernel="field", wd=wd, bf16=bf16)
+            if "render_tiles_kernel_grid" in name:
+                g = re.search(r"ILb(\d)ELb(\d)E", name)
+                mode = ("static" if g.group(1) == "0" else
+                        "cut" if g.group(2) == "1" else "deformed")
+                cur = {"kernel": f"tile {mode} hashgrid f32",
+                       "inst": dict(kernel="tile_grid", mode=mode)}
+                rows.append(cur)
+                continue
             if "render_tiles" in name:
                 inst.update(kernel="tile", paired=b.group(4) == "1",
                             block=b.group(5) == "1",
@@ -366,7 +382,12 @@ def occupancy(_build, inst: dict) -> tuple:
     memory; the bending modes at Wn = 64)."""
     blocks, smem = ctypes.c_int(), ctypes.c_int()
     out = (ctypes.byref(blocks), ctypes.byref(smem))
-    if inst["kernel"] == "field":
+    if inst["kernel"] == "tile_grid":
+        lib = _build.library("tile_grid")
+        rc = lib.pienerf_render_tiles_grid_occupancy(
+            int(inst["mode"] != "static"), int(inst["mode"] == "cut"), 64,
+            *out)
+    elif inst["kernel"] == "field":
         lib = _build.library("field")
         rc = lib.pienerf_field_occupancy(int(inst["bf16"]), inst["wd"], *out)
     else:
@@ -527,15 +548,20 @@ def psnr(a, b) -> float:
     return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
 
 
-def tile_bound(tk, pw, args, kw, out, segments, peak_mlp) -> dict:
+def tile_bound(tk, pw, args, kw, out, segments, peak_mlp, macs=None,
+               grid_flops=0) -> dict:
     """The tile kernel's bound on one pass's inputs: the reference's
     operations per executed sample (the field MLP at ``peak_mlp``, the f32
     or the bf16 peak; in the bending modes one squared distance per window
     row, 8 flops, then num_seek min passes over the window,
     tile_kernel.py:406-420, on the CUDA cores) against the bytes read and
-    written once (the static march reads no candidates)."""
+    written once (the static march reads no candidates). ``macs``: the
+    net's MACs a sample (default the Fourier net of the pack's width);
+    ``grid_flops``: a hash grid's encoding operations a sample (f32)."""
     samples = segments * tk.T2 * kw["Ks"]
-    op_s = 2.0 * FIELD_MACS[pw.shape[-1]] * samples / peak_mlp
+    macs = FIELD_MACS[pw.shape[-1]] if macs is None else macs
+    op_s = (2.0 * macs * samples / peak_mlp
+            + grid_flops * samples / PEAK_F32)
     read = args
     if kw["deformed"]:
         op_s += (8.0 + kw["num_seek"]) * kw["Wn"] * samples / PEAK_F32
@@ -547,6 +573,73 @@ def tile_bound(tk, pw, args, kw, out, segments, peak_mlp) -> dict:
                 bound_ms=max(op_s, nbytes / PEAK_BYTES) * 1e3,
                 bound_by=("operations" if op_s > nbytes / PEAK_BYTES
                           else "bytes"))
+
+
+# torch-ngp's hash-grid nets (sigma 32-64-16, color 31-64-64-3) and its
+# encoding's operations a sample inside the box (16 levels x (3 + 16 + 16
+# x 2 features): benchmark/reference/hashgrid.py flops_per_sample)
+GRID_MACS = 9344
+GRID_ENCODE_FLOPS = 816
+
+
+def hashgrid_rows(tk, spec, pw, passes) -> dict:
+    """torch-ngp's hash-grid net in the tile kernel (f32, the default
+    schedule), per mode on one pass's inputs (``passes``: mode -> (args,
+    kw)): the kernel against its plain version (within 1e-4, the dropped
+    row equal), the plain version's ms, the bound (tile_bound over every
+    marched sample, the encoding's operations added, the table's rows not
+    counted), and the kernel's ms in turns with its counters and without
+    (off, on, on, off; on under a profiler of the host alone: the
+    counters' cost, which a traced run's launches pay), with the
+    counters' readings: samples encoded (= the
+    plain version's live points), rows read (= 16 x 8 x those inside the
+    grid's box) and the encode stage's share of the warps' cycles. One
+    line a mode (tile_kernel_hashgrid_<mode>)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rows = {}
+    for mode, (args, kw) in passes.items():
+        st = {}
+        ko = tk.render_tiles(spec, pw, *args, **kw)
+        po = tk.render_tiles_plain(spec, pw, *args, **kw, stats=st)
+        torch.cuda.synchronize()
+        row = dict(mode=mode, dtype="float32",
+                   max_abs_err=float((ko[:, 0:5] - po[:, 0:5]).abs().max()),
+                   dropped_equal=bool(torch.equal(ko[:, 5], po[:, 5])),
+                   points=st["points"], inside=st["inside"])
+        def run():
+            return tk.render_tiles(spec, pw, *args, **kw)
+
+        def counted(reps):
+            # a profiler of the host alone turns the counters on, as in a
+            # traced run
+            with profile(activities=[ProfilerActivity.CPU]):
+                return cuda_ms(run, reps)
+        reps = 5
+        tk.read_grid_counters(zero=True)
+        off = [cuda_ms(run, reps)]
+        on = [counted(reps), counted(reps)]
+        off.append(cuda_ms(run, reps))
+        n_counted = 2 * (reps + 1)
+        enc, tile, samples, nrows = (
+            v / n_counted for v in tk.read_grid_counters(zero=True).values())
+        row.update(ms=float(np.mean(off)), ms_reps=off,
+                   counters_ms=float(np.mean(on)), counters_ms_reps=on,
+                   counters_cost=float(np.mean(on) / np.mean(off) - 1.0),
+                   samples_encoded=samples, rows_read=nrows,
+                   rows_per_sample=nrows / max(samples, 1.0),
+                   encode_cycle_share=enc / max(tile, 1.0))
+        row["plain_ms"] = cuda_ms(lambda: tk.render_tiles_plain(
+            spec, pw, *args, **kw), 1)
+        row.update(tile_bound(tk, pw, args, kw, ko, st["segments"],
+                              PEAK_F32, macs=GRID_MACS,
+                              grid_flops=GRID_ENCODE_FLOPS))
+        emit(f"tile_kernel_hashgrid_{mode}", **row)
+        assert row["max_abs_err"] <= 1e-4 and row["dropped_equal"], row
+        assert samples == st["points"], row
+        assert nrows == 16 * 8 * st["inside"], row
+        rows[mode] = row
+    return rows
 
 
 # the parent commit's field and tile libraries for the before / after
@@ -587,15 +680,69 @@ def finish_baseline(procs) -> None:
 
 
 def on_baseline(fn):
-    """fn() with the baseline libraries in place of this tree's."""
+    """fn() with the baseline libraries in place of this tree's (the
+    fused frame's captured graphs, which hold this tree's kernels, dropped
+    on either side)."""
     from pienerf_tpu_torch.kernels import _build
+    from pienerf_tpu_torch.render import interactive
     saved = dict(_build._libs)
     _build._libs.update(BASELINE_LIBS)
+    interactive.render_frame_fused.graphs.clear()
     try:
         return fn()
     finally:
         _build._libs.clear()
         _build._libs.update(saved)
+        interactive.render_frame_fused.graphs.clear()
+
+
+def graph_frame_check(interactive, cases) -> dict:
+    """The fused frame as a CUDA graph (render_frame_fused from its second
+    call with the same settings on) against the same frame op by op (under
+    a profiler of the host alone, which runs it op by op): every output
+    bit for bit, and the ms a frame of both (host clock to a sync, in
+    turns: op by op, graph, graph, op by op; op by op by dropping the
+    captures before each call). ``cases``: name -> (settings, weights,
+    ip_pack, p_def, pose, intrinsics, H, W, cut box or None). One line a
+    case (frame_graph)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    graphs = interactive.render_frame_fused.graphs
+    rows = {}
+    for name, (st, w, pack, p_def, pose, intr, H, W, cb) in cases.items():
+        def call():
+            return interactive.render_frame_fused(st, w, pack, p_def, pose,
+                                                  intr, H, W, 1.0, cb)
+
+        def eager():
+            graphs.clear()
+            return call()
+
+        def ms(fn, n=10):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+        graphs.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            ref = call()
+        outs = [call() for _ in range(3)]   # op by op, captured, replayed
+        torch.cuda.synchronize()
+        equal = all(torch.equal(o[k], ref[k]) for o in outs for k in ref)
+        e = [ms(eager)]
+        g = [ms(call), ms(call)]
+        e.append(ms(eager))
+        row = dict(case=name, equal=equal, eager_ms=float(np.mean(e)),
+                   eager_ms_reps=e, graph_ms=float(np.mean(g)),
+                   graph_ms_reps=g)
+        emit("frame_graph", **row)
+        assert equal, row
+        rows[name] = row
+    graphs.clear()
+    return rows
 
 
 def timed_turns(run, reps, hold=None) -> dict:
@@ -2230,8 +2377,8 @@ def main() -> None:
 
     def tile_name(mode, wd, schedule):
         return (f"tile_{mode}_paired" if schedule == "paired" else
-                f"tile_{mode}_w{wd}" + ("_block" if schedule == "block"
-                                        else ""))
+                f"tile_{mode}_{tk.net_label(wd)}"
+                + ("_block" if schedule == "block" else ""))
 
     def read_counts():
         """Every kernel's launches since the last reset; a tile entry sums
@@ -2898,6 +3045,38 @@ def main() -> None:
             rows_c[mode + suffix] = r_["bfloat16"]
             rows_c32[mode + suffix] = r_["float32"]
 
+    # ---- torch-ngp's hash-grid field at its published widths (the default
+    # grid at bound 1: 16 levels x 2, 2^19 rows a level, 6,119,864 rows;
+    # seeded random nets and table, as the trainer starts them): main path
+    # 1 with it, then its tile kernel in each mode on the same passes'
+    # inputs against its plain version, with the counters' cost
+    spec_g = network.make_spec(bound=1.0, backbone="hashgrid")
+    pw_g = fk.pack_weights(network.FieldMLP(
+        spec_g, generator=torch.Generator().manual_seed(0), device=dev),
+        spec_g, dev)
+    _, _, grid_launches, grid_info = chained(
+        "frame_hashgrid", ist._replace(spec=spec_g), pw_g,
+        "tile_deformed_hashgrid", n_prof=2)
+    grid_rows = hashgrid_rows(tk, spec_g, pw_g, {
+        "deformed": (args, kw), "static": (args_s, kw_s),
+        "cut": (args_b, kw_b)})
+
+    # ---- the fused frame as a CUDA graph against the same frame op by
+    # op: main path 1 (f32, the 64-wide field and the hash grid) at frame
+    # 0's state, and the cut frame (f32, no static cache) at its frame 0's
+    p_def0, F0, dF0 = sim.get_ip_info(consts, state0)
+    pack0 = beam_bend.pack_ip_data_fast(p_def0, consts.ip_pos.float(), F0,
+                                        dF0)
+    p_defc, Fc, dFc = sim.get_ip_info(consts_c, state0_c)
+    packc = beam_bend.pack_ip_data_fast(p_defc, consts_c.ip_pos.float(), Fc,
+                                        dFc)
+    graph_frame_check(interactive, {
+        "deformed_w64": (ist32, pw, pack0, p_def0, pose, intr, H, W, None),
+        "deformed_hashgrid": (ist._replace(spec=spec_g), pw_g, pack0,
+                              p_def0, pose, intr, H, W, None),
+        "cut_w64": (ist_c._replace(spec=spec32), pw, packc, p_defc, pose,
+                    intr_c, Hc, Wc, cb)})
+
     # ---- where the tile kernel's cycles go: the timed instantiation on
     # the bench inputs (deformed, both widths) and the cut pass's, with
     # the timed and untimed instantiations' resident blocks per SM
@@ -3508,6 +3687,17 @@ def main() -> None:
             "pienerf_tpu_torch/csrc/tile_kernel_block.cu", tsrc[1],
             bframe_launches["tile_deformed_w64_block"], rows_b[64, 4],
             **f32_tile(rows_b[64, 4]["f32"])),
+    ] + [
+        # torch-ngp's hash-grid net: f32 rows; its launches on main path 1
+        # (deformed), the others on the checks' passes
+        row(f"tile_kernel_hashgrid_{m}",
+            "pienerf_tpu_torch/csrc/tile_kernel_grid.cu", "none",
+            grid_launches["tile_deformed_hashgrid"] if m == "deformed"
+            else 1, grid_rows[m], counters_ms=grid_rows[m]["counters_ms"],
+            counters_cost=grid_rows[m]["counters_cost"],
+            rows_per_sample=grid_rows[m]["rows_per_sample"],
+            frame_ms=grid_info["ms_per_frame"] if m == "deformed" else None)
+        for m in ("deformed", "static", "cut")
     ] + [
         row(f"{n}_fetch", psrc,
             f"tools/pallas_gather_probe.py:{probe_lines[n]}",

@@ -251,9 +251,9 @@ __device__ __forceinline__ void f32_hidden(W& w, float* __restrict__ h) {
   }
 }
 
-// The sigma head (layer 3, 16 outputs) from buffer h: put_sigma(p, sigma)
-// for every point p of the pass, geo 0..14 into rows 16..30 of h (color
-// layer 0's input after SH(d), which the caller puts in rows 0..15).
+// The sigma head (layer N::kHead, 16 outputs) from buffer h: put_sigma(p,
+// sigma) for every point p of the pass, geo 0..14 into rows 16..30 of h
+// (color layer 0's input after SH(d), which the caller puts in rows 0..15).
 template <class N, int P, int THREADS = kF32Threads, class W, class Put>
 __device__ __forceinline__ void f32_head(W& w, float* __restrict__ h,
                                          Put put_sigma) {
@@ -263,7 +263,7 @@ __device__ __forceinline__ void f32_head(W& w, float* __restrict__ h,
   const int og = threadIdx.x % T::kNog, pg = threadIdx.x / T::kNog;
   float acc[TP][4];
   zero(acc);
-  w.template layer<3, TP, TO4, P>(h, og, pg, acc);
+  w.template layer<N::kHead, TP, TO4, P>(h, og, pg, acc);
 #pragma unroll
   for (int q = 0; q < TP; ++q) {
     const int p = TP * pg + q;
@@ -279,15 +279,15 @@ __device__ __forceinline__ void f32_head(W& w, float* __restrict__ h,
   }
 }
 
-// The last color layer (3 outputs, padded to 4) from buffer h: thread p <
-// P computes point p's rgb and calls put_rgb(r, g, b).
+// The last color layer (N::kRgb, 3 outputs, padded to 4) from buffer h:
+// thread p < P computes point p's rgb and calls put_rgb(r, g, b).
 template <class N, int P, class W, class Put>
 __device__ __forceinline__ void f32_rgb(W& w, const float* __restrict__ h,
                                         Put put_rgb) {
   using T = F32Tile<4, 1, 1, P>;
   float acc[1][4];
   zero(acc);
-  w.template layer<6, 1, 1, P>(h, 0, threadIdx.x, acc);
+  w.template layer<N::kRgb, 1, 1, P>(h, 0, threadIdx.x, acc);
   if (threadIdx.x < T::kThreads) {
     put_rgb(1.f / (1.f + expf(-acc[0][0])), 1.f / (1.f + expf(-acc[0][1])),
             1.f / (1.f + expf(-acc[0][2])));

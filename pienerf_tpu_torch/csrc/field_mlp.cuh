@@ -48,6 +48,10 @@ struct Net {
   static constexpr int kWd = WD;
   static constexpr int kNf = NF;
   static constexpr int kEnc = 3 * (1 + 2 * NF);
+  static constexpr int kLayers = pienerf::kLayers;
+  static constexpr int kHead = 3;        // the sigma head
+  static constexpr int kRgb = 6;         // the last color layer
+  static constexpr bool kGrid = false;   // Fourier features, not a hash grid
   __host__ __device__ static constexpr int in(int l) {
     return l == 0 ? kEnc : (l == 4 ? 31 : WD);
   }
@@ -119,7 +123,8 @@ __device__ __forceinline__ void stage_layer(float* __restrict__ sw,
   stage_block<N, L>(sw, pw + (size_t)L * N::kWd * N::kWd, N::kWd);
 }
 
-// Stage every layer of a net whose compact weights fit (Net64).
+// Stage every layer of a net whose compact weights fit (Net64, and the
+// hash-grid net's five, grid_encode.cuh).
 template <class N>
 __device__ __forceinline__ void stage_weights(float* sw,
                                               const float* __restrict__ pw) {
@@ -128,8 +133,10 @@ __device__ __forceinline__ void stage_weights(float* sw,
   stage_layer<N, 2>(sw + N::off(2), pw);
   stage_layer<N, 3>(sw + N::off(3), pw);
   stage_layer<N, 4>(sw + N::off(4), pw);
-  stage_layer<N, 5>(sw + N::off(5), pw);
-  stage_layer<N, 6>(sw + N::off(6), pw);
+  if constexpr (N::kLayers == 7) {
+    stage_layer<N, 5>(sw + N::off(5), pw);
+    stage_layer<N, 6>(sw + N::off(6), pw);
+  }
 }
 
 // Stage a 64-wide net from the paired pack [4, 128, 128]

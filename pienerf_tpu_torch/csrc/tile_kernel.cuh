@@ -2,9 +2,11 @@
 // composite for 16x16 image tiles, one thread per ray. The template is
 // instantiated by tile_kernel.cu (both widths, one tile per block),
 // tile_kernel_block.cu (the same with block_tiles tiles per block),
-// tile_kernel_paired.cu (the 64-wide net from the paired pack, either) and
-// tile_kernel_timed.cu (one tile per block, its cycles split by phase):
-// four translation units, so their nvcc runs go side by side.
+// tile_kernel_paired.cu (the 64-wide net from the paired pack, either),
+// tile_kernel_timed.cu (one tile per block, its cycles split by phase) and
+// tile_kernel_grid.cu (torch-ngp's hash-grid net, grid_encode.cuh: f32,
+// one tile per block, its encoding in place of the Fourier features): five
+// translation units, so their nvcc runs go side by side.
 //
 // Replaces the Pallas TPU kernel pienerf_tpu/ops/pallas/tile_kernel.py
 // `_make_kernel` (launched by `render_tiles`, :640-742) for both packed
@@ -109,13 +111,16 @@
 // (__syncthreads_or) of "this ray's transmittance is still >= T_thresh",
 // the only segment-level control flow besides the deformed mode's
 // tile-uniform skip. A block carries only its staged weights and its
-// window phase count from tile to tile, and uses no atomics.
+// window phase count from tile to tile, and uses no atomics (but for the
+// hash-grid instantiation's counters under a profiler: one add a counter
+// a warp as the block ends).
 // The build uses -fmad=false so the scalar sample, bend and cut-box
 // arithmetic rounds as the reference does; the MLP uses explicit FMAs.
 #pragma once
 
 #include "bulk.cuh"
 #include "field_f32.cuh"
+#include "grid_encode.cuh"
 
 namespace pienerf {
 
@@ -185,6 +190,55 @@ __device__ __forceinline__ void f32_sample(W& w, float* __restrict__ A,
   for (int f = 0; f < 16; ++f) A[f * kT2 + r] = sh[f];
   f32_hidden<N, 4, kT2, kT2>(w, A);
   f32_hidden<N, 5, kT2, kT2>(w, A);
+  f32_rgb<N, kT2>(w, A, [&](float a, float b, float c) {
+    cr = a;
+    cg = b;
+    cb = c;
+  });
+  sigma = sig[r];    // written before color layer 0's first barrier
+}
+
+// The hash-grid net's f32_sample (grid_encode.cuh; tile_kernel_grid.cu):
+// thread r encodes its sample into column r of A in place of the Fourier
+// features, or zeros when `on` is false (a dummy point past the list, whose
+// result is dropped: it reads no row), then the same layers. With counters
+// (g.ctr set, block-uniform) each warp's lane 0 adds the encode stage's
+// cycles, between two warp barriers, and the warp's samples encoded and rows
+// read.
+template <class N, class W>
+__device__ __forceinline__ void f32_sample_grid(
+    W& w, float* __restrict__ A, float* __restrict__ sig, const GridArgs& g,
+    bool on, float x0, float x1, float x2, float bound, const float* dv,
+    float& sigma, float& cr, float& cg, float& cb, GridCount<true>& gc) {
+  const int r = threadIdx.x;
+  unsigned t = 0;
+  if (g.ctr) {
+    __syncwarp();
+    t = (unsigned)clock64();
+  }
+  auto put = [&](int f, float v) { A[f * kT2 + r] = v; };
+  bool inside = false;
+  if (on) {
+    inside = grid_encode_to(g.table, g.lv, x0, x1, x2, bound, put);
+  } else {
+#pragma unroll
+    for (int f = 0; f < N::kEnc; ++f) put(f, 0.f);
+  }
+  if (g.ctr) {
+    __syncwarp();
+    gc.enc += (unsigned)clock64() - t;
+    gc.samples += __popc(__ballot_sync(0xffffffffu, on));
+    gc.rows += kGridLevels * kGridCorners *
+               __popc(__ballot_sync(0xffffffffu, inside));
+  }
+  f32_hidden<N, 0, kT2, kT2>(w, A);
+  f32_head<N, kT2, kT2>(w, A, [&](int p, float s) { sig[p] = s; });
+  float sh[16];
+  sh4<false>(dv[0], dv[1], dv[2], sh);
+#pragma unroll
+  for (int f = 0; f < 16; ++f) A[f * kT2 + r] = sh[f];
+  f32_hidden<N, 2, kT2, kT2>(w, A);
+  f32_hidden<N, 3, kT2, kT2>(w, A);
   f32_rgb<N, kT2>(w, A, [&](float a, float b, float c) {
     cr = a;
     cg = b;
@@ -478,7 +532,8 @@ __device__ __forceinline__ void render_tiles_block(
     const float* __restrict__ params, const float* __restrict__ dirs,
     const float* __restrict__ cand, const float* __restrict__ pw,
     float* __restrict__ out, int A, int B, int BS, int P, int K, int Ks,
-    int Ksb, int Wn, int num_seek, float bound, long long* __restrict__ cyc) {
+    int Ksb, int Wn, int num_seek, float bound, long long* __restrict__ cyc,
+    const GridArgs& g = GridArgs{}) {
   constexpr bool kWide = N::kWd == 128;
   static_assert(!PAIRED || !kWide, "only the 64-wide net pairs");
   // f32, default and block_tiles schedules: only the live samples go
@@ -543,6 +598,7 @@ __device__ __forceinline__ void render_tiles_block(
   }
 
   PhaseClock<TIMED> clk;
+  [[maybe_unused]] GridCount<N::kGrid> gc;  // the hash grid's counters
   bool staged = false;                  // the weights, once per block
   // without MULTI the trip count is a compile-time 1: a loop whose count
   // the compiler cannot see costs the static mode 19% (Wd 64) to 48%
@@ -560,6 +616,9 @@ __device__ __forceinline__ void render_tiles_block(
     if (!(sc[2] > 0.f)) {                            // inactive slot
       for (int row = 0; row < 8; ++row) o_t[row * kT2 + r] = 0.f;
       continue;
+    }
+    if constexpr (N::kGrid) {
+      if (g.ctr) gc.t_tile = (unsigned)clock64();
     }
     if (!staged) {                      // tile-uniform, so block-uniform
       if constexpr (BF16 && PAIRED) {
@@ -724,8 +783,13 @@ __device__ __forceinline__ void render_tiles_block(
             }
           }
           float sigma, cr, cg, cb;
-          f32_sample<N>(w32, buf, buf + N::kWd * kT2, x0, x1, x2, bound, d,
-                        sigma, cr, cg, cb);
+          if constexpr (N::kGrid) {
+            f32_sample_grid<N>(w32, buf, buf + N::kWd * kT2, g, slot >= 0,
+                               x0, x1, x2, bound, d, sigma, cr, cg, cb, gc);
+          } else {
+            f32_sample<N>(w32, buf, buf + N::kWd * kT2, x0, x1, x2, bound,
+                          d, sigma, cr, cg, cb);
+          }
           if (slot >= 0) {
             float* q = xs + 4 * kk * kT2 + ray;
             q[0] = sigma;
@@ -986,9 +1050,24 @@ __device__ __forceinline__ void render_tiles_block(
     o_t[6 * kT2 + r] = 0.f;
     o_t[7 * kT2 + r] = 0.f;
     clk.tile_end(cyc, a);
+    if constexpr (N::kGrid) {
+      if (g.ctr) {
+        __syncwarp();
+        gc.tile += (unsigned)clock64() - gc.t_tile;
+      }
+    }
   }
   if constexpr (!BF16 && !PAIRED && kWide) {
     if (staged) w32.last();             // the next pass's chunk, prefetched
+  }
+  if constexpr (N::kGrid) {
+    // one atomic add a counter a warp, once per block
+    if (g.ctr && (r & 31) == 0) {
+      atomicAdd(g.ctr + kCtrEncode, (unsigned long long)gc.enc);
+      atomicAdd(g.ctr + kCtrTile, (unsigned long long)gc.tile);
+      atomicAdd(g.ctr + kCtrSamples, (unsigned long long)gc.samples);
+      atomicAdd(g.ctr + kCtrRows, (unsigned long long)gc.rows);
+    }
   }
 }
 
@@ -1018,6 +1097,17 @@ template <bool BF16, bool DEFORMED, bool CUT, bool PAIRED, bool MULTI,
 __global__ void __launch_bounds__(kT2, 1)
     render_tiles_kernel_f32(PIENERF_TILE_ARGS) {
   PIENERF_TILE_CALL;
+}
+
+// The hash-grid net (grid_encode.cuh, tile_kernel_grid.cu): f32, the
+// default schedule, the grid's arguments besides Net64's.
+template <bool DEFORMED, bool CUT>
+__global__ void __launch_bounds__(kT2, 1)
+    render_tiles_kernel_grid(PIENERF_TILE_ARGS,
+                             const __grid_constant__ GridArgs g) {
+  render_tiles_block<false, DEFORMED, CUT, false, false, GridNet64, false>(
+      tile_sc, bin_start, params, dirs, cand, pw, out, A, B, BS, P, K, Ks,
+      Ksb, Wn, num_seek, bound, cyc, g);
 }
 
 #undef PIENERF_TILE_ARGS
@@ -1081,6 +1171,39 @@ cudaError_t occupancy(int Wn, int* resident, int* smem_bytes) {
   auto kern =
       tile_kernel_entry<BF16, DEFORMED, CUT, PAIRED, MULTI, N, TIMED>();
   const size_t smem = launch_smem<BF16, DEFORMED, PAIRED, N>(Wn);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = (int)smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kern, kT2,
+                                                       smem);
+}
+
+// A hash-grid launch: one tile per block, its GridArgs by value.
+template <bool DEFORMED, bool CUT>
+cudaError_t launch_grid(const float* tile_sc, const int* bin_start,
+                        const float* params, const float* dirs,
+                        const float* cand, const float* pw, float* out, int A,
+                        int BS, int P, int K, int Ks, int Ksb, int Wn,
+                        int num_seek, float bound, const GridArgs& g,
+                        cudaStream_t stream) {
+  auto kern = render_tiles_kernel_grid<DEFORMED, CUT>;
+  const size_t smem = launch_smem<false, DEFORMED, false, GridNet64>(Wn);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (A > 0) {
+    kern<<<A, kT2, smem, stream>>>(tile_sc, bin_start, params, dirs, cand,
+                                   pw, out, A, 1, BS, P, K, Ks, Ksb, Wn,
+                                   num_seek, bound, nullptr, g);
+  }
+  return cudaGetLastError();
+}
+
+template <bool DEFORMED, bool CUT>
+cudaError_t occupancy_grid(int Wn, int* resident, int* smem_bytes) {
+  auto kern = render_tiles_kernel_grid<DEFORMED, CUT>;
+  const size_t smem = launch_smem<false, DEFORMED, false, GridNet64>(Wn);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

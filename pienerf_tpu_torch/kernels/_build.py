@@ -26,6 +26,7 @@ SOURCES = {"field": "field_kernel.cu", "tile": "tile_kernel.cu",
            "tile_block": "tile_kernel_block.cu",
            "tile_timed": "tile_kernel_timed.cu",
            "tile_paired": "tile_kernel_paired.cu",
+           "tile_grid": "tile_kernel_grid.cu",
            "probes": "probe_kernels.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",

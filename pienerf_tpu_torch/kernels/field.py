@@ -8,6 +8,11 @@ classic 64-wide net and the distilled 128-wide student; ``KERNEL_NETS``).
 to the plain version. With ``compute_dtype="bfloat16"`` the kernel runs the
 MLP on the tensor cores (``csrc/mma_mlp.cuh``), with f32 on the CUDA cores;
 the plain version rounds as both do.
+
+The packs of the fused kernels live here too: ``pack_weights`` (every net),
+``pack_weights_paired`` (the tile kernel's paired schedule) and, for
+torch-ngp's hash-grid net (``GRID_NET``), the pack with its embedding table
+(``GridPack``), which the tile kernel alone takes (``kernels/tile.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Tuple
 import torch
 
 from pienerf_tpu_torch.kernels import _build
+from pienerf_tpu_torch.models import hash_encoder
 from pienerf_tpu_torch.models.network import (NetworkSpec, layer_dims,
                                               torch_dtype)
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
@@ -31,6 +37,39 @@ KERNEL_NETS = {
     128: ([63, 128, 128, 128, 16], [31, 128, 128, 3]),
 }
 WIDTHS = tuple(KERNEL_NETS)
+# torch-ngp's hash-grid net (NeRFNetwork(encoding="hashgrid")) at its
+# published widths: 16 levels x 2 features, sigma 32-64-16, color
+# 31-64-64-3; the tile kernel's f32 default schedule alone
+# (csrc/grid_encode.cuh). Its launches count under this name.
+GRID_NET = "hashgrid"
+GRID_DIMS = ([32, 64, 16], [31, 64, 64, 3])
+GRID_LEVELS, GRID_LEVEL_DIM = 16, 2
+
+
+class GridPack(torch.Tensor):
+    """``pack_weights``' return for the hash-grid net: the [5, 64, 64] pack
+    of its two sigma and three color layers (``[0]`` the sigma net's first,
+    as for every net), carrying the embedding table [rows, 2] f32 on the
+    same device as ``.table``.
+
+    The table has to travel with the pack, since every caller hands the
+    pack alone to the frame (``render_frame_fused(st, packed_w, ...)``). A
+    tensor subclass in ``nn.Parameter``'s pattern: torch functions are
+    disabled on it, so every operation on it (an index, ``.to``) returns a
+    plain tensor without the table; only the pack object itself carries
+    it."""
+
+    table: torch.Tensor
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __new__(cls, pack: torch.Tensor, table: torch.Tensor):
+        out = torch.Tensor._make_subclass(cls, pack, False)
+        out.table = table
+        return out
+
+
+def is_grid_pack(packed_w) -> bool:
+    return isinstance(packed_w, GridPack)
 
 
 def kernel_width(spec: NetworkSpec) -> int:
@@ -42,21 +81,30 @@ def kernel_width(spec: NetworkSpec) -> int:
 
 
 def pack_weights(params, spec: NetworkSpec, device) -> torch.Tensor:
-    """Zero-pad every layer to a [Wd, Wd] tile and stack: [L, Wd, Wd] f32.
+    """Zero-pad every layer to a [Wd, Wd] tile and stack: [L, Wd, Wd] f32;
+    for the hash-grid backbone a ``GridPack`` that carries the table.
 
     ``params``: a FieldMLP or a tree with ``sigma_net`` / ``color_net``
-    lists of [in, out] arrays or tensors."""
+    lists of [in, out] arrays or tensors (and the hash grid's ``encoder``,
+    a table or a one-table list)."""
     wd = kernel_width(spec)
-    layers = list(params.sigma_net) + list(params.color_net) if hasattr(
-        params, "sigma_net") else (list(params["sigma_net"])
-                                   + list(params["color_net"]))
+    tree = hasattr(params, "sigma_net")
+    layers = list(params.sigma_net) + list(params.color_net) if tree else (
+        list(params["sigma_net"]) + list(params["color_net"]))
     out = torch.zeros((len(layers), wd, wd), dtype=torch.float32,
                       device=device)
     with torch.no_grad():            # a trainable field packs as a frozen one
         for i, w in enumerate(layers):
             w = torch.as_tensor(w, dtype=torch.float32, device=device)
             out[i, :w.shape[0], :w.shape[1]] = w
-    return out
+        if spec.backbone != "hashgrid":
+            return out
+        table = params.encoder if tree else params["encoder"]
+        if isinstance(table, (list, tuple)):
+            (table,) = table
+        table = torch.as_tensor(table, dtype=torch.float32,
+                                device=device).detach().contiguous()
+    return GridPack(out, table)
 
 
 def pack_weights_paired(params, spec: NetworkSpec, device) -> torch.Tensor:
@@ -85,8 +133,14 @@ def is_paired(spec: NetworkSpec, packed_w: torch.Tensor) -> bool:
     return packed_w.shape[-1] == 128 and kernel_width(spec) == 64
 
 
-def encode_rows(x, spec: NetworkSpec, cdt: torch.dtype) -> torch.Tensor:
-    """Fourier features [F, N] rounded to cdt (the kernels' encoding)."""
+def encode_rows(x, spec: NetworkSpec, cdt: torch.dtype,
+                packed_w=None) -> torch.Tensor:
+    """The kernels' encoding [F, N] rounded to cdt: Fourier features, or
+    for a ``GridPack`` ``packed_w`` the hash grid's (``hash_encoder.encode``
+    on its table; a position outside the box encodes to zeros)."""
+    if is_grid_pack(packed_w):
+        return hash_encoder.encode(packed_w.table, spec.grid, x, spec.bound,
+                                   feature_major=True).to(cdt)
     return freq_encode(x, spec.n_freqs, spec.bound,
                        feature_major=True).to(cdt)
 
@@ -158,6 +212,7 @@ def field_eval_plain(packed_w: torch.Tensor, spec: NetworkSpec, x, d
     if is_paired(spec, packed_w):
         raise ValueError("field_eval takes the [7, Wd, Wd] pack; the paired "
                          "layout is the tile kernel's")
+    _refuse_grid(packed_w)
     cdt = torch_dtype(spec.compute_dtype)
     x = _stack(x)
     d = _stack(d)
@@ -166,12 +221,53 @@ def field_eval_plain(packed_w: torch.Tensor, spec: NetworkSpec, x, d
     return mlp_plain(packed_w, spec, enc, sh)
 
 
+def _refuse_grid(packed_w) -> None:
+    """Every kernel path but the tile kernel's default f32 schedule (the
+    field kernel and its plain version, so the Newton frames; the timed
+    instantiation) takes the Fourier nets alone."""
+    if is_grid_pack(packed_w):
+        raise NotImplementedError(
+            "the hash-grid field renders through the fused frame alone "
+            "(interactive.render_frame_fused, the tile kernel's default "
+            "f32 schedule; --max_iter_num 1): the field kernel, the Newton "
+            "frames and the timed tile kernel take the Fourier MLP alone")
+
+
+def _check_grid(spec: NetworkSpec, packed_w: torch.Tensor) -> None:
+    """Raise unless ``packed_w`` is the hash-grid net's pack at its
+    published widths with its table, for ``spec``."""
+    g = spec.grid
+    sd, cd = layer_dims(spec)
+    table = packed_w.table
+    ok = (spec.backbone == "hashgrid" and g is not None
+          and (g.num_levels, g.level_dim, g.input_dim, g.interpolation)
+          == (GRID_LEVELS, GRID_LEVEL_DIM, 3, "linear")
+          and (sd, cd) == GRID_DIMS and tuple(packed_w.shape) == (5, 64, 64)
+          and tuple(table.shape) == (g.total_params, GRID_LEVEL_DIM)
+          and table.dtype == torch.float32)
+    if not ok:
+        raise NotImplementedError(
+            f"the tile kernel's hash-grid net is torch-ngp's: a linear grid "
+            f"of {GRID_LEVELS} levels x {GRID_LEVEL_DIM} features, sigma "
+            f"{GRID_DIMS[0]}, color {GRID_DIMS[1]}, packed [5, 64, 64] with "
+            f"its table [rows, 2] f32; got backbone {spec.backbone!r}, grid "
+            f"{g}, sigma {sd}, color {cd}, pack {tuple(packed_w.shape)}, "
+            f"table {tuple(table.shape)} {table.dtype}")
+
+
 def check_kernel_spec(spec: NetworkSpec, packed_w: torch.Tensor,
-                      allow_paired: bool = False) -> int:
+                      allow_paired: bool = False, allow_grid: bool = False):
     """The CUDA kernels are specialised to the nets of ``KERNEL_NETS``,
     each packed [7, Wd, Wd]; with ``allow_paired`` (the tile kernel) the
     64-wide net may also come in the paired [4, 128, 128] layout of
-    ``pack_weights_paired``. Returns the net's width Wd."""
+    ``pack_weights_paired``, and with ``allow_grid`` (the tile kernel's
+    default f32 schedule) the hash-grid net may come as its ``GridPack``.
+    Returns the net: its width Wd, or ``GRID_NET``."""
+    if is_grid_pack(packed_w):
+        if not allow_grid:
+            _refuse_grid(packed_w)
+        _check_grid(spec, packed_w)
+        return GRID_NET
     sd, cd = layer_dims(spec)
     shape = tuple(packed_w.shape)
     for wd, dims in KERNEL_NETS.items():
@@ -182,15 +278,17 @@ def check_kernel_spec(spec: NetworkSpec, packed_w: torch.Tensor,
         f"the CUDA field kernels take the 51-64-64-64-16 / 31-64-64-3 net "
         f"packed [7, 64, 64] (the tile kernel also its paired [4, 128, 128] "
         f"layout) or the 63-128-128-128-16 / 31-128-128-3 net packed "
-        f"[7, 128, 128]; got sigma {sd}, color {cd}, pack {shape}")
+        f"[7, 128, 128], and the tile kernel the hash-grid net as "
+        f"pack_weights' GridPack; got sigma {sd}, color {cd}, pack {shape}")
 
 
-def check_aligned(t: torch.Tensor, name: str) -> None:
-    """Raise unless ``t`` starts on a 16-byte boundary, as a bulk copy's
-    address and a 16-byte vector load need (the fetch kernels' rows, the
-    tile kernel's candidate windows)."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary "
+def check_aligned(t: torch.Tensor, name: str, align: int = 16) -> None:
+    """Raise unless ``t`` starts on an ``align``-byte boundary: 16 as a
+    bulk copy's address and a 16-byte vector load need (the fetch kernels'
+    rows, the tile kernel's candidate windows), 8 for the hash grid's
+    float2 rows."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary "
                          f"(data_ptr {t.data_ptr():#x})")
 
 

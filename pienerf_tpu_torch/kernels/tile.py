@@ -20,20 +20,32 @@ the live samples alone, packed into passes of 256; ``render_tiles_plain``'s
 ``render_tiles_timed`` launches the kernel's timed instantiation (CUDA
 only, either dtype), which also returns where each tile's clock cycles
 went.
+
+torch-ngp's hash-grid net (``kernels.field.GRID_NET``, packed as a
+``GridPack`` with its table) runs the f32 default schedule in all three
+modes (``csrc/tile_kernel_grid.cu``): its multiresolution hash encoding
+takes the Fourier features' place, and ``render_tiles_plain`` encodes with
+``models.hash_encoder.encode``. Under ``torch.profiler`` its launches add
+four device counters (``read_grid_counters``); otherwise the kernel reads
+no clock.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pienerf_tpu_torch.kernels import _build
-from pienerf_tpu_torch.kernels.field import (WIDTHS, check_aligned,
+from pienerf_tpu_torch.kernels.field import (GRID_NET, WIDTHS, check_aligned,
                                              check_arg, check_kernel_spec,
-                                             encode_rows, is_paired,
-                                             mlp_paired_plain, mlp_plain)
+                                             encode_rows, is_grid_pack,
+                                             is_paired, mlp_paired_plain,
+                                             mlp_plain)
+from pienerf_tpu_torch.models import hash_encoder
 from pienerf_tpu_torch.models.network import NetworkSpec, torch_dtype
 from pienerf_tpu_torch.models.sh_encoder import sh_encode
 from pienerf_tpu_torch.utils.trace import FRAME_TILE_LAUNCH, span
@@ -50,6 +62,9 @@ SPLIT_COLS = len(SPLIT_PHASES) + 3 + len(SPLIT_COUNTS)
 # the f32 kernel's bound on one sample's sigma (expf(15) < 3.3e6), from
 # which it bounds a sample's optical depth (render_tiles_plain's "points")
 SIGMA_BOUND = 3.3e6
+# the hash-grid launches' device counters (csrc/grid_encode.cuh
+# GridCounter), in order
+GRID_COUNTERS = ("encode_cycles", "tile_cycles", "samples", "rows")
 
 
 def mode_of(deformed: bool, cut: bool) -> str:
@@ -251,9 +266,35 @@ def _resolve_paired(spec, packed_w, paired) -> bool:
     return bool(paired)
 
 
+def _refuse_grid_schedule(spec, packed_w, paired, block_tiles) -> None:
+    """The hash-grid net runs the f32 default schedule alone."""
+    if not is_grid_pack(packed_w):
+        return
+    what = ("compute dtype " + spec.compute_dtype
+            if spec.compute_dtype != "float32" else "the paired schedule"
+            if paired else f"block_tiles {block_tiles}"
+            if int(block_tiles) > 1 else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"the {GRID_NET} net runs the tile kernel's f32 default "
+            f"schedule alone, not {what}")
+
+
+def _grid_inside(xm, bound: float) -> torch.Tensor:
+    """Which positions lie in the hash grid's box, as the kernel decides
+    (each axis's (x + bound) / (2 bound) in [0, 1]; NaN outside)."""
+    inside = None
+    for c in xm:
+        u = (c + bound) / (2.0 * bound)
+        ok = (u >= 0.0) & (u <= 1.0)
+        inside = ok if inside is None else inside & ok
+    return inside
+
+
 def render_tiles_plain(
     spec: NetworkSpec,
-    packed_w: torch.Tensor,    # [L, Wd, Wd], or the paired [lp, 128, 128]
+    packed_w: torch.Tensor,    # [L, Wd, Wd], the paired [lp, 128, 128] or a
+    #                            GridPack
     tile_sc: torch.Tensor,     # [A, 8]  t0, t1, active
     bin_start: torch.Tensor,   # [A, >= K+4] int32
     params: torch.Tensor,      # [24]
@@ -280,7 +321,9 @@ def render_tiles_plain(
     (less the kernel's rounding margin, ``csrc/tile_kernel.cuh:live_from``)
     is still >= T_thresh, and ceil(n / 256) passes for n of them. Given a
     list under ``stats["groups"]``, each executed group appends (tile,
-    first sample, n).
+    first sample, n). With a ``GridPack``, ``stats["inside"]`` counts those
+    points that lie in the grid's box (each reads 16 x 8 table rows in the
+    kernel), and the encoding is the hash grid's.
 
     ``paired`` follows the reference's pending/drain schedule on the
     block-diagonal pack: each executed segment's pass evaluates its sigma
@@ -289,7 +332,9 @@ def render_tiles_plain(
     weights, and the last pending segment drains after the loop.
     ``block_tiles`` pads the tiles to a multiple of B with inactive slots
     and cuts the output back, as the kernel's wrapper does."""
+    _refuse_grid_schedule(spec, packed_w, paired, block_tiles)
     paired = _resolve_paired(spec, packed_w, paired)
+    grid = is_grid_pack(packed_w)
     A0 = tile_sc.shape[0]
     tile_sc, bin_start, dirs, cand = _pad_tiles(
         max(1, block_tiles), tile_sc, bin_start, dirs, cand)
@@ -371,7 +416,8 @@ def render_tiles_plain(
             xm = x
             found = torch.ones((n, T2, Ks), dtype=torch.bool, device=dev)
 
-        enc = encode_rows(tuple(c.reshape(-1) for c in xm), spec, cdt)
+        enc = encode_rows(tuple(c.reshape(-1) for c in xm), spec, cdt,
+                          packed_w)
         shs = sh[:, idx][..., None].expand(16, n, T2, Ks).reshape(16, -1)
         if paired:
             gp = geo_prev[idx].to(cdt).permute(1, 0, 2, 3).reshape(15, -1)
@@ -388,7 +434,9 @@ def render_tiles_plain(
         csum = torch.cumsum(tau, dim=2)
         if stats is not None:
             _count_live(stats, idx, s * Ks, vmask, csum, cum[idx], dscale,
-                        tdt, T_thresh, Ks=Ks, Ksb=Ksb)
+                        tdt, T_thresh, Ks=Ks, Ksb=Ksb,
+                        inside=_grid_inside(xm, spec.bound) if grid
+                        else None)
         c_before = cum[idx][..., None] + (csum - tau)
         T_prev = torch.exp(-c_before)
         wgt = torch.where(T_prev >= T_thresh,
@@ -426,11 +474,12 @@ def render_tiles_plain(
 
 
 def _count_live(stats, idx, k_seg, vmask, csum, cum, dscale, dt_s, T_thresh,
-                *, Ks, Ksb):
+                *, Ks, Ksb, inside=None):
     """Add one executed segment's live points and MLP passes (the f32
     kernel's compaction) to ``stats``: the segment from sample k_seg of
     tiles idx [n], vmask, csum [n, T2, Ks], cum [n, T2] before the
-    segment, dt_s [n]."""
+    segment, dt_s [n]; with ``inside`` [n, T2, Ks] (a hash grid's box)
+    also ``stats["inside"]``, the live points inside."""
     tau_max = (SIGMA_BOUND * dscale) * dt_s                         # [n]
     bounded = (tau_max >= 0) & (tau_max < float("inf"))
     for k0 in range(Ks):
@@ -441,7 +490,11 @@ def _count_live(stats, idx, k_seg, vmask, csum, cum, dscale, dt_s, T_thresh,
         lo = S - (S + tau_max[:, None]) * 2.0 ** -21
         lo = torch.where(lo > 0, lo, torch.zeros_like(lo))
         dead = bounded[:, None] & (torch.exp(-(cum + lo)) < T_thresh)
-        n = (vmask[..., k0:k0 + nk] & ~dead[..., None]).sum((1, 2))
+        live = vmask[..., k0:k0 + nk] & ~dead[..., None]
+        n = live.sum((1, 2))
+        if inside is not None:
+            stats["inside"] = stats.get("inside", 0) + int(
+                (live & inside[..., k0:k0 + nk]).sum())
         stats["points"] = stats.get("points", 0) + int(n.sum())
         stats["passes"] = stats.get("passes", 0) + int(
             ((n + T2 - 1) // T2).sum())
@@ -465,17 +518,21 @@ def render_tiles(
     """Run the fused tile kernel over A tiles -> out [A, 8, 256].
 
     CPU tensors take render_tiles_plain; CUDA tensors launch the kernel in
-    the mode ``mode_of(deformed, cut)`` at the net's width Wd and count the
-    launch in ``render_tiles.launches[(mode, Wd, schedule, compute_dtype)]``
+    the mode ``mode_of(deformed, cut)`` for the net (its width Wd, or
+    ``GRID_NET`` for a ``GridPack``) and count the launch in
+    ``render_tiles.launches[(mode, net, schedule, compute_dtype)]``
     (schedule "default", "paired" or "block"; a paired launch with B > 1
     counts as paired). ``paired`` None infers the
     pairing from the pack; ``block_tiles`` B > 1 renders B tiles per thread
     block, A padded to a multiple of B with inactive slots and the output
-    cut back to A. Under ``torch.profiler`` the CUDA branch (argument
+    cut back to A. The hash-grid net takes the f32 default schedule alone.
+    Under ``torch.profiler`` the CUDA branch (argument
     checks and the ctypes launch) is the ``frame.tile_launch`` span, which
-    the launched kernel links to."""
+    the launched kernel links to, and a hash-grid launch adds to the
+    device's counters (``read_grid_counters``)."""
     _check_shapes(cand, bin_start, K=K, Ks=Ks, Ksb=Ksb, Wn=Wn,
                   num_seek=num_seek, block_tiles=block_tiles)
+    _refuse_grid_schedule(spec, packed_w, paired, block_tiles)
     B = int(block_tiles)
     kw = dict(K=K, Ks=Ks, Ksb=Ksb, Wn=Wn, num_seek=num_seek,
               deformed=deformed, cut=cut)
@@ -485,14 +542,18 @@ def render_tiles(
                                   block_tiles=B)
     with span(FRAME_TILE_LAUNCH):
         mode = mode_of(deformed, cut)
-        wd = check_kernel_spec(spec, packed_w, allow_paired=True)
+        wd = check_kernel_spec(spec, packed_w, allow_paired=True,
+                               allow_grid=True)
         paired = _resolve_paired(spec, packed_w, paired)
-        # the paired and the block_tiles instantiations are libraries of
-        # their own (one nvcc each, side by side)
-        name = "tile_paired" if paired else "tile_block" if B > 1 else "tile"
+        # the paired, block_tiles and hash-grid instantiations are
+        # libraries of their own (one nvcc each, side by side)
+        name = ("tile_grid" if wd == GRID_NET else "tile_paired" if paired
+                else "tile_block" if B > 1 else "tile")
+        ctr = (grid_counters_when_traced(tile_sc.device)
+               if wd == GRID_NET else None)
         out = _launch(name, "pienerf_render_" + name.replace("tile", "tiles"),
                       spec, packed_w, tile_sc, bin_start, params, dirs, cand,
-                      B, paired, wd, None, **kw)
+                      B, paired, wd, ctr, **kw)
         render_tiles.launches[launch_key(mode, wd, paired, B,
                                          spec.compute_dtype)] += 1
         return out
@@ -565,25 +626,77 @@ def _check_shapes(cand, bin_start, *, K, Ks, Ksb, Wn, num_seek,
         raise ValueError(f"block_tiles {block_tiles} must be >= 1")
 
 
+@functools.lru_cache(maxsize=8)
+def grid_levels(grid: hash_encoder.HashGridSpec) -> np.ndarray:
+    """The hash-grid kernel's per-level constants (``csrc/grid_encode.cuh``
+    GridLevels) as 65 uint32 words: the levels' scales (f32 bits), dense
+    strides (resolution + 1), rows and first rows, then the dense levels'
+    bit mask; ``hash_encoder``'s constants, which its plain encoding
+    uses."""
+    scales, res, rows, first, dense = hash_encoder._level_constants(grid)
+    mask = sum(1 << lvl for lvl in range(grid.num_levels) if dense[lvl])
+    words = np.concatenate([scales.astype(np.float32).view(np.uint32),
+                            (res + 1).astype(np.uint32),
+                            rows.astype(np.uint32), first.astype(np.uint32),
+                            np.array([mask], np.uint32)])
+    words.setflags(write=False)
+    return words
+
+
+def grid_counters_when_traced(device) -> Optional[torch.Tensor]:
+    """What a hash-grid launch on ``device`` takes as its counter buffer:
+    while ``torch.profiler`` records, the device's running sums (int64 [4],
+    ``GRID_COUNTERS``, made at first use), else None, and then the kernel
+    reads no clock."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    bufs = render_tiles.grid_counters
+    if device not in bufs:
+        bufs[device] = torch.zeros(len(GRID_COUNTERS), dtype=torch.int64,
+                                   device=device)
+    return bufs[device]
+
+
+def read_grid_counters(zero: bool = False) -> Dict[str, int]:
+    """The hash-grid launches' counters summed over every device since
+    they were last zeroed (``GRID_COUNTERS``: warp cycles in the encode
+    stage, warp cycles of the whole tile, samples encoded, table rows
+    read); all zero where no launch ran under a profiler. Reading waits
+    for the device; ``zero`` then zeroes the sums."""
+    total = [0] * len(GRID_COUNTERS)
+    for buf in render_tiles.grid_counters.values():
+        total = [a + b for a, b in zip(total, buf.tolist())]
+        if zero:
+            buf.zero_()
+    return dict(zip(GRID_COUNTERS, total))
+
+
 def _launch(lib_name, fn_name, spec, packed_w, tile_sc, bin_start, params,
             dirs, cand, B, paired, wd, cycles, *, K, Ks, Ksb, Wn, num_seek,
             deformed, cut):
     """Check the arguments, pad A to a multiple of B and launch the C entry
-    ``fn_name`` of library ``lib_name`` -> out [A, 8, 256]."""
+    ``fn_name`` of library ``lib_name`` -> out [A, 8, 256]. For the
+    hash-grid net (``wd`` GRID_NET) ``cycles`` is the counter buffer or
+    None."""
     dev = tile_sc.device
     A0 = tile_sc.shape[0]
     P, BS = cand.shape[1], bin_start.shape[1]
     tile_sc, bin_start, dirs, cand = _pad_tiles(B, tile_sc, bin_start, dirs,
                                                 cand)
     A = tile_sc.shape[0]
-    for t, name, dtype, shape in (
-            (tile_sc, "tile_sc", torch.float32, (A, 8)),
+    grid = wd == GRID_NET
+    args = [(tile_sc, "tile_sc", torch.float32, (A, 8)),
             (bin_start, "bin_start", torch.int32, (A, BS)),
             (params, "params", torch.float32, (24,)),
             (dirs, "dirs", torch.float32, (A, 8, T2)),
             (cand, "cand", torch.float32, (A, P, PACK_FAST)),
             (packed_w, "packed_w", torch.float32,
-             (4, 128, 128) if paired else (7, wd, wd))):
+             (4, 128, 128) if paired else (5, 64, 64) if grid
+             else (7, wd, wd))]
+    if grid:
+        args.append((packed_w.table, "table", torch.float32,
+                     (spec.grid.total_params, 2)))
+    for t, name, dtype, shape in args:
         check_arg(t, name, dtype, shape, dev)
     # each sub-segment's window lands in shared memory by one bulk copy
     check_aligned(cand, "cand")
@@ -591,28 +704,44 @@ def _launch(lib_name, fn_name, spec, packed_w, tile_sc, bin_start, params,
     lib = _build.library(lib_name)
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * (
-            2 if cycles is not None else 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-    extra = () if cycles is None else (cycles.data_ptr(),)
-    rc = fn(tile_sc.data_ptr(), bin_start.data_ptr(), params.data_ptr(),
+    head = (tile_sc.data_ptr(), bin_start.data_ptr(), params.data_ptr(),
             dirs.data_ptr(), cand.data_ptr(), packed_w.data_ptr(),
             out.data_ptr(), A, B, BS, P, K, Ks, Ksb, Wn, num_seek,
-            float(spec.bound), int(spec.compute_dtype == "bfloat16"),
-            int(deformed), int(cut), wd, *extra, stream)
+            float(spec.bound))
+    if grid:
+        # the table's rows are read as float2: 8-byte aligned
+        check_aligned(packed_w.table, "table", 8)
+        levels = grid_levels(spec.grid)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+            ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+        rc = fn(*head, int(deformed), int(cut), packed_w.table.data_ptr(),
+                levels.ctypes.data,
+                None if cycles is None else cycles.data_ptr(), stream)
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * (
+                2 if cycles is not None else 1)
+        extra = () if cycles is None else (cycles.data_ptr(),)
+        rc = fn(*head, int(spec.compute_dtype == "bfloat16"),
+                int(deformed), int(cut), wd, *extra, stream)
     _build.check(lib, rc, fn_name)
     return out[:A0]
 
 
-def launch_key(mode: str, wd: int, paired: bool, block_tiles: int,
-               dtype: str):
-    """The ``render_tiles.launches`` entry a launch counts in: (mode, net
-    width, schedule, compute dtype), the schedule one of ``SCHEDULES``, the
-    dtype one of ``DTYPES``."""
+def launch_key(mode: str, wd, paired: bool, block_tiles: int, dtype: str):
+    """The ``render_tiles.launches`` entry a launch counts in: (mode, net,
+    schedule, compute dtype), the net its width or ``GRID_NET``, the
+    schedule one of ``SCHEDULES``, the dtype one of ``DTYPES``."""
     return (mode, wd, "paired" if paired
             else "block" if block_tiles > 1 else "default", dtype)
+
+
+def net_label(wd) -> str:
+    """A launch key's net as the entry points print it: ``w64``, ``w128``
+    or ``hashgrid``."""
+    return wd if wd == GRID_NET else f"w{wd}"
 
 
 SCHEDULES = ("default", "paired", "block")
@@ -620,3 +749,8 @@ DTYPES = ("float32", "bfloat16")
 render_tiles.launches = {
     (m, wd, v, t): 0 for m in MODES for wd in WIDTHS for v in SCHEDULES
     for t in DTYPES if not (v == "paired" and wd != 64)}
+render_tiles.launches.update(
+    {(m, GRID_NET, "default", "float32"): 0 for m in MODES})
+# the hash-grid counters' running sums, by device
+# (grid_counters_when_traced)
+render_tiles.grid_counters = {}

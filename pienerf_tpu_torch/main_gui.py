@@ -19,6 +19,11 @@ At the default ``--max_iter_num`` (100, the reference's full Newton
 ``--max_iter_num 1`` takes the fused tile kernel instead
 (``pipeline.interactive_frame_step``). The 64-wide net and the 128-wide
 distilled student both run, at the width of the checkpoint's weights.
+``--backbone hashgrid`` serves torch-ngp's hash-grid field (the field
+upstream trains) on the fused frame alone: the port's native checkpoint
+(``main_train --backbone hashgrid``), a reference ``.pth``
+(``io.checkpoint.load_torch_ngp``) or a seeded random field; it needs
+``--max_iter_num 1``, f32 and no background net (``--bg_radius``).
 ``--cut --cut_bounds xmin xmax ymin ymax zmin zmax`` bends only inside the
 box and renders the rest of the scene (``--bound``) as a static background.
 Runs on the card; ``--device cpu`` is the only way onto the CPU.
@@ -66,33 +71,41 @@ def _checkpoint_path(cfg):
 
 def _load_field(cfg, device):
     """(spec, packed weights) of the checkpoint ``_checkpoint_path`` names
-    (its ``ema_params``; the mlp architecture read from the weight
-    shapes), or of a seeded random field when there is none, the file is
-    missing, or its ``params`` hold a non-finite value (refused with a
-    log line, as trainer.py:932-948 refuses it)."""
+    (its ``ema_params``, or a reference ``.pth``'s weights for the hashgrid
+    backbone; the nets' architecture read from the weight shapes), or of a
+    seeded random field when there is none, the file is missing, or its
+    ``params`` hold a non-finite value (refused with a log line, as
+    trainer.py:932-948 refuses it)."""
     import torch
 
-    from pienerf_tpu_torch.io.checkpoint import load_native
+    from pienerf_tpu_torch.io.checkpoint import load_native, load_torch_ngp
     from pienerf_tpu_torch.kernels import field as field_kernel
     from pienerf_tpu_torch.models import network
     from pienerf_tpu_torch.weights import field_from_numpy
 
-    if cfg.backbone != "mlp":
+    if cfg.backbone not in ("mlp", "hashgrid"):
         raise NotImplementedError(
             f"backbone {cfg.backbone!r}: the interactive frames serve the "
-            f"mlp backbone, as the JAX package's do; a hashgrid field "
-            f"renders through pipeline.frame_step; pass --backbone mlp")
-    spec = network.make_spec(bound=cfg.bound,
-                             compute_dtype=cfg.compute_dtype)
+            f"mlp and hashgrid backbones")
+    grid = cfg.backbone == "hashgrid"
+    spec = (network.make_spec(bound=cfg.bound,
+                              compute_dtype=cfg.compute_dtype,
+                              backbone="hashgrid", bg_radius=cfg.bg_radius)
+            if grid else network.make_spec(bound=cfg.bound,
+                                           compute_dtype=cfg.compute_dtype))
     path = _checkpoint_path(cfg)
     ema = None
     if path is not None and os.path.exists(path):
         if path.endswith(".pth"):
-            raise NotImplementedError(
-                f"{path}: the interactive frames load native .npz mlp "
-                "checkpoints; a reference .pth (a hashgrid field) imports "
-                "through io.checkpoint.load_torch_ngp for pipeline.frame_step")
-        tree, _ = load_native(path)
+            if not grid:
+                raise NotImplementedError(
+                    f"{path}: a reference .pth holds a hashgrid field, "
+                    "which io.checkpoint.load_torch_ngp imports: pass "
+                    "--backbone hashgrid")
+            params, _ = load_torch_ngp(path)
+            tree = {"params": params}
+        else:
+            tree, _ = load_native(path)
         params = tree.get("params", tree)
         if _params_finite(params):
             ema = tree.get("ema_params", params)
@@ -102,9 +115,10 @@ def _load_field(cfg, device):
     if ema is not None:
         sn, cn = ema["sigma_net"], ema["color_net"]
         spec = spec._replace(
-            n_freqs=(sn[0].shape[0] // 3 - 1) // 2, hidden_dim=sn[0].shape[1],
-            hidden_dim_color=cn[0].shape[1], num_layers=len(sn),
-            num_layers_color=len(cn))
+            hidden_dim=sn[0].shape[1], hidden_dim_color=cn[0].shape[1],
+            num_layers=len(sn), num_layers_color=len(cn))
+        if not grid:
+            spec = spec._replace(n_freqs=(sn[0].shape[0] // 3 - 1) // 2)
         field = field_from_numpy(ema, spec, device)
         print(f"[ckpt] loaded {path}")
     else:
@@ -150,7 +164,15 @@ def setup(argv=None):
 
     device = resolve_device(ns.device)
 
+    if cfg.backbone == "hashgrid" and cfg.max_iter_num != 1:
+        raise NotImplementedError(
+            "--backbone hashgrid renders through the fused frame "
+            "(interactive.render_frame_fused, the tile kernel): pass "
+            "--max_iter_num 1; the Newton frame's field kernel takes the "
+            "Fourier MLP alone")
     spec, pw = _load_field(cfg, device)
+    if cfg.max_iter_num == 1:
+        interactive.check_fused_spec(spec)
 
     ply_path = os.path.join("assets", f"{cfg.exp_name}.ply")
     if not os.path.exists(ply_path):
@@ -270,7 +292,8 @@ def main(argv=None):
     print(f"wrote {ns.frames} frames to {ns.out_dir}/")
     launched = {f"field_w{w}_{t}": n for (w, t), n
                 in field_kernel.field_eval.launches.items() if n}
-    launched.update({f"tile_{m}_w{w}_{s}_{t}": n for (m, w, s, t), n
+    launched.update({f"tile_{m}_{tile_kernel.net_label(w)}_{s}_{t}": n
+                     for (m, w, s, t), n
                      in tile_kernel.render_tiles.launches.items() if n})
     print(f"kernel launches: {json.dumps(launched)}")
 

@@ -17,7 +17,9 @@ Train mode, train-while-render with spp accumulation:
 Then open http://127.0.0.1:7007/ (drag = orbit, ctrl+drag = pick and pull
 an IP, space = pause, [ ] = dataset poses in train mode). ``--frames N``
 stops after N frames (scripted runs). The field is the workspace's, as the
-trainer picks it (``--ckpt``); the mlp backbone only. Sim mode reads the
+trainer picks it (``--ckpt``): the mlp backbone, or ``--backbone
+hashgrid`` (torch-ngp's field: a native checkpoint, a reference ``.pth`` or
+a seeded random field; f32, no background net). Sim mode reads the
 annotated ``assets/<exp_name>.ply`` and needs ``--max_iter_num 1``; ``--cut
 --cut_bounds ...`` bends inside the box only. Runs on the card; ``--device
 cpu`` is the only way onto the CPU.
@@ -53,15 +55,14 @@ def parse(argv=None):
 
 
 def load_trainer(cfg, ns):
-    """The workspace's field in a trainer (``--ckpt``), mlp only."""
+    """The workspace's field in a trainer (``--ckpt``): mlp or hashgrid,
+    with no background net (the fused frame renders none)."""
+    from pienerf_tpu_torch.render import interactive
     from pienerf_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer("ngp", cfg, workspace=cfg.workspace,
                       use_checkpoint=cfg.ckpt, device=ns.device)
-    if trainer.spec.backbone != "mlp":
-        raise SystemExit("the live viewer needs the mlp backbone "
-                         "(a hashgrid field renders offline; distill it "
-                         "with main_distill)")
+    interactive.check_fused_spec(trainer.spec)
     return trainer
 
 
@@ -135,7 +136,8 @@ def main(argv=None):
                                   cut_bounds=cut_bounds, port=ns.port,
                                   max_frames=ns.frames,
                                   target_ms=ns.target_ms)
-    launched = {f"tile_{m}_w{w}_{s}_{t}": n for (m, w, s, t), n
+    launched = {f"tile_{m}_{tile_kernel.net_label(w)}_{s}_{t}": n
+                for (m, w, s, t), n
                 in tile_kernel.render_tiles.launches.items() if n}
     print(f"kernel launches: {json.dumps(launched)}", flush=True)
 

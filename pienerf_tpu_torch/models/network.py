@@ -9,7 +9,8 @@ hash grid of 4 levels) and ``bg_net`` (reference nerf/network.py:74-95).
 Weights are bias-free and stored ``[in, out]`` as in the JAX params tree,
 so a checkpoint carries across without transposes. Unlike the JAX
 package, ``make_spec`` defaults to the mlp backbone, which every fused
-path of the port serves; pass ``backbone="hashgrid"`` for the other.
+path of the port serves (the hashgrid one serves only the fused frame's
+tile kernel); pass ``backbone="hashgrid"`` for the other.
 
 A field is built frozen (``requires_grad=False``), as every inference
 path and the kernels' ``pack_weights`` read it; ``trainable=True`` (or

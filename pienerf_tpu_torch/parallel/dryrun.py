@@ -305,8 +305,9 @@ def _launches() -> dict:
 
     out = {f"field_w{w}_{t}": n for (w, t), n
            in fk.field_eval.launches.items() if n}
-    out.update({f"tile_{m}_w{w}_{s}_{t}": n for (m, w, s, t), n
-                in tk.render_tiles.launches.items() if n})
+    out.update({f"tile_{m}_{tk.net_label(w)}_{s}_{t}": n
+                for (m, w, s, t), n in tk.render_tiles.launches.items()
+                if n})
     fk.field_eval.launches = dict.fromkeys(fk.field_eval.launches, 0)
     tk.render_tiles.launches = dict.fromkeys(tk.render_tiles.launches, 0)
     return out

@@ -6,7 +6,9 @@ fiber per CUDA thread of a block, all on one host thread, switched at
 ``cp.async`` as an immediate copy; blocks in turn), and its C entry point
 is held against the plain PyTorch version on small inputs: the field
 kernel, the tile kernel in every mode and schedule (default, paired,
-``block_tiles``), f32 and bf16, the four fetch probes and the shell. The
+``block_tiles``), f32 and bf16, its hash-grid net (``tile_kernel_grid.cu``)
+in every mode with its device counters, the four fetch probes and the
+shell. The
 one-hot fetch's tensor-core instruction (``mma.cuh:mma_bf16_16816``) is
 emulated at a warp barrier from the 32 lanes' fragments, and the bf16
 MLP's warpgroup MMA (``wgmma.cuh``) at a warpgroup barrier from the 128
@@ -104,6 +106,18 @@ inline uint32_t __float_as_uint(float f) {
   return u;
 }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+// a kernel parameter's address is taken in place (no copy to make here)
+#define __grid_constant__
+// the read-only path is a plain read; one host thread runs every fiber, so
+// an atomic add is a plain add
+template <class T>
+inline T __ldg(const T* p) { return *p; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  const unsigned long long old = *p;
+  *p = old + v;
+  return old;
+}
 // the cycle counter and the global timer: one tick a read
 inline long long emu_ticks = 0;
 inline long long clock64() { return ++emu_ticks; }
@@ -2353,6 +2367,123 @@ def test_emulated_timed_tile_kernel_counts_live_points(libs, mode, wd,
     _, cyc16 = _tile_run(libs, spec._replace(compute_dtype="bfloat16"), pw,
                          args, kw, timed=True)
     assert not cyc16[..., col:].any()
+
+
+# A hash grid with the published net's 16 levels x 2 features at a size the
+# emulation runs: levels 0-1 dense ((2 + 1)^3 and (4 + 1)^3 rows fit their
+# 32 and 128), levels 2-15 hashed into 128 rows each. Its per-level scale
+# is 2 (desired_resolution 2 x 2^15), so the levels' scales 2^(l + 1) - 1
+# are odd integers and a coordinate at the box's centre lies on a cell
+# face at every level.
+GRID_KW = dict(num_levels=16, level_dim=2, base_resolution=2,
+               log2_hashmap_size=7, desired_resolution=65536)
+
+
+def _grid_weights(seed, bound=0.25):
+    """A seeded hash-grid field (its table drawn in [-1, 1], so that the
+    encoding matters) and its GridPack. At ``bound`` 0.25 the frame's IP
+    ball (radius 0.34) reaches past the grid's box: some samples lie
+    outside it."""
+    from pienerf_tpu_torch.models import hash_encoder
+    spec = tnet.make_spec(bound=bound, backbone="hashgrid")._replace(
+        grid=hash_encoder.make_spec(**GRID_KW))
+    gen = torch.Generator().manual_seed(seed)
+    field = tnet.FieldMLP(spec, generator=gen)
+    field.encoder.data = torch.rand(field.encoder.shape,
+                                    generator=gen) * 2 - 1
+    return spec, tfk.pack_weights(field, spec, CPU)
+
+
+def _grid_inputs(mode):
+    """``_tile_inputs``' frame with the first 8 rays of every tile along +z
+    from the camera at (0, 0, -2.5): their unbent samples have x = y = 0,
+    on a cell face of every level."""
+    args, kw = _tile_inputs(mode)
+    dirs = args[3].clone()
+    dirs[:, 0:3, :8] = torch.tensor([0.0, 0.0, 1.0])[None, :, None]
+    return args[:3] + (dirs,) + args[4:], kw
+
+
+def _grid_run(libs, spec, pw, args, kw, counters=None):
+    """The emulated hash-grid tile kernel as ``render_tiles`` launches it
+    -> out [A, 8, 256]; ``counters`` (int64 [4]) is its counter buffer."""
+    a = [t.contiguous().numpy() for t in args]
+    A, P = a[4].shape[0], a[4].shape[1]
+    out = np.full((A, 8, ttk.T2), np.nan, np.float32)
+    fn = libs["tile_grid"].pienerf_render_tiles_grid
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    table = pw.table.contiguous().numpy()
+    rc = fn(*(_ptr(t) for t in a), _ptr(pw.numpy()), _ptr(out), A, 1,
+            a[1].shape[1], P, kw["K"], kw["Ks"], kw["Ksb"], kw["Wn"],
+            kw["num_seek"], spec.bound, int(kw["deformed"]), int(kw["cut"]),
+            _ptr(table), _ptr(ttk.grid_levels(spec.grid)),
+            None if counters is None else _ptr(counters), None)
+    assert rc == 0
+    return out
+
+
+def _round_mantissa(t, drop):
+    """``t`` (f32) rounded to nearest with its low ``drop`` mantissa bits
+    cleared: 16 leaves bf16's 7 bits, 13 TF32's 10."""
+    i = t.contiguous().view(torch.int32)
+    half = 1 << (drop - 1)
+    return ((i + half) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+# the hash-grid kernel against its plain twin: the encoding is the same
+# arithmetic in the same order (each product rounded before its sum, the
+# 8 corners summed in corner order, as torch sums the plain version's
+# stacked corners), so the gap is the f32 MLP's summation order (the
+# kernel's FMA chains against torch's products): 1.2e-7 at most here.
+# 2e-6 holds it with room; the same weights and table rounded to TF32
+# (1.6e-5 or more here) or bf16 (1.6e-4) move the output by more (asserted)
+GRID_ATOL = 2e-6
+
+
+@pytest.mark.parametrize("mode", ["deformed", "static", "cut"])
+def test_emulated_grid_tile_kernel_matches_plain(libs, mode):
+    """torch-ngp's hash-grid net in the tile kernel (16 levels x 2
+    features, dense and hashed levels, samples on cell faces and outside
+    the grid's box) against ``render_tiles_plain``, which encodes with
+    ``hash_encoder.encode``, in every mode."""
+    spec, pw = _grid_weights(7)
+    args, kw = _grid_inputs(mode)
+    out = _grid_run(libs, spec, pw, args, kw)
+    st = {}
+    ref = ttk.render_tiles_plain(spec, pw, *args, **kw, stats=st).numpy()
+    assert ref[:, 4].max() > 0.1                  # real coverage
+    assert 0 < st["inside"] < st["points"]         # both sides of the box
+    np.testing.assert_allclose(out[:, 0:5], ref[:, 0:5], atol=GRID_ATOL)
+    np.testing.assert_array_equal(out[:, 5], ref[:, 5])
+    for drop in (16, 13):                          # bf16, TF32
+        rounded = tfk.GridPack(_round_mantissa(pw, drop),
+                               _round_mantissa(pw.table, drop))
+        ctl = ttk.render_tiles_plain(spec, rounded, *args, **kw).numpy()
+        assert np.abs(ctl[:, 0:5] - ref[:, 0:5]).max() > GRID_ATOL, drop
+
+
+@pytest.mark.parametrize("mode", ["deformed", "static"])
+def test_emulated_grid_counters_count_the_encode(libs, mode):
+    """With a counter buffer the hash-grid kernel adds, once per block, the
+    samples it encoded (the points its MLP evaluated: the plain twin's
+    ``points``), the table rows they read (16 levels x 8 corners for each
+    inside the grid's box, none outside) and its warps' cycles in the
+    encode stage and in the whole tile; its output is the one it gives
+    without the buffer, bit for bit."""
+    spec, pw = _grid_weights(7)
+    args, kw = _grid_inputs(mode)
+    ctr = np.zeros(4, np.int64)
+    out = _grid_run(libs, spec, pw, args, kw, counters=ctr)
+    np.testing.assert_array_equal(out, _grid_run(libs, spec, pw, args, kw))
+    st = {}
+    ttk.render_tiles_plain(spec, pw, *args, **kw, stats=st)
+    enc, tile, samples, rows = ctr.tolist()
+    assert samples == st["points"] > 0
+    assert 0 < st["inside"] < samples
+    assert rows == 16 * 8 * st["inside"]
+    assert 0 < enc < tile
 
 
 def _fetch_run(libs, which, table, idx):

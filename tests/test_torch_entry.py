@@ -101,9 +101,12 @@ def test_unported_paths_raise(tmp_path):
     from pienerf_tpu_torch import main_gui
     base = ["--device", "cpu", "--workspace", str(tmp_path / "ws"),
             "--frames", "1", "--out_dir", str(tmp_path / "o")] + GUI_FLAGS
-    with pytest.raises(NotImplementedError):
-        main_gui.main(base + ["--backbone", "hashgrid"])
-    # the reference's .pth import is not ported: named, latest, or by path
+    # the hash-grid field serves the fused frame alone (test_torch_gridnet)
+    with pytest.raises(NotImplementedError, match="render_frame_fused"):
+        main_gui.main(base + ["--backbone", "hashgrid", "--max_iter_num",
+                              "100"])
+    # a reference .pth holds a hash-grid field: the mlp backbone refuses
+    # it, named, latest, or by path
     ck = tmp_path / "ws" / "checkpoints"
     ck.mkdir(parents=True)
     (ck / "ngp_ep0001.pth").write_bytes(b"")

@@ -485,7 +485,8 @@ def test_main_viewer_sim_mode(tmp_path, monkeypatch, capsys):
 
 def test_main_viewer_train_mode(tmp_path, capsys):
     """main_viewer --mode train on a blender-layout dataset: two frames of
-    train-while-render, the trainer stepping; the hashgrid is refused."""
+    train-while-render, the trainer stepping; a field with a background
+    net, which the fused frame would leave out, is refused."""
     data = str(tmp_path / "data")
     hw = 32
     f = 0.9 * hw
@@ -498,8 +499,9 @@ def test_main_viewer_train_mode(tmp_path, capsys):
             "--scale", "1.0", "--dt_gamma", "0", "--num_rays", "64",
             "--train_max_samples", "16", "--H", "32", "--W", "32",
             "--port", "0", "--frames", "2"]
-    with pytest.raises(SystemExit, match="mlp backbone"):
-        main_viewer.main(args + ["--backbone", "hashgrid"])
+    with pytest.raises(NotImplementedError, match="background net"):
+        main_viewer.main(args + ["--backbone", "hashgrid", "--bg_radius",
+                                 "2.0"])
     main_viewer.main(args + ["--backbone", "mlp"])
     assert "(train mode)" in capsys.readouterr().out
     assert os.path.isdir(tmp_path / "ws" / "checkpoints")
