@@ -24,9 +24,6 @@ entry points at full width on the trained checkpoint:
     in each mode on the checks' passes against its plain version, with
     its device counters' readings and their cost, the kernel timed with
     its counter buffer and without, in turns (tile_kernel_hashgrid_*);
-  the fused frame as a CUDA graph (render_frame_fused from its second
-    call) against the same frame op by op, bit for bit, with both's ms a
-    frame (frame_graph);
   the tile kernel's paired and block_tiles schedules: each against its
     plain version and, bit for bit, against the default schedule, then the
     bench frame through each;
@@ -680,69 +677,15 @@ def finish_baseline(procs) -> None:
 
 
 def on_baseline(fn):
-    """fn() with the baseline libraries in place of this tree's (the
-    fused frame's captured graphs, which hold this tree's kernels, dropped
-    on either side)."""
+    """fn() with the baseline libraries in place of this tree's."""
     from pienerf_tpu_torch.kernels import _build
-    from pienerf_tpu_torch.render import interactive
     saved = dict(_build._libs)
     _build._libs.update(BASELINE_LIBS)
-    interactive.render_frame_fused.graphs.clear()
     try:
         return fn()
     finally:
         _build._libs.clear()
         _build._libs.update(saved)
-        interactive.render_frame_fused.graphs.clear()
-
-
-def graph_frame_check(interactive, cases) -> dict:
-    """The fused frame as a CUDA graph (render_frame_fused from its second
-    call with the same settings on) against the same frame op by op (under
-    a profiler of the host alone, which runs it op by op): every output
-    bit for bit, and the ms a frame of both (host clock to a sync, in
-    turns: op by op, graph, graph, op by op; op by op by dropping the
-    captures before each call). ``cases``: name -> (settings, weights,
-    ip_pack, p_def, pose, intrinsics, H, W, cut box or None). One line a
-    case (frame_graph)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    graphs = interactive.render_frame_fused.graphs
-    rows = {}
-    for name, (st, w, pack, p_def, pose, intr, H, W, cb) in cases.items():
-        def call():
-            return interactive.render_frame_fused(st, w, pack, p_def, pose,
-                                                  intr, H, W, 1.0, cb)
-
-        def eager():
-            graphs.clear()
-            return call()
-
-        def ms(fn, n=10):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / n * 1e3
-        graphs.clear()
-        with profile(activities=[ProfilerActivity.CPU]):
-            ref = call()
-        outs = [call() for _ in range(3)]   # op by op, captured, replayed
-        torch.cuda.synchronize()
-        equal = all(torch.equal(o[k], ref[k]) for o in outs for k in ref)
-        e = [ms(eager)]
-        g = [ms(call), ms(call)]
-        e.append(ms(eager))
-        row = dict(case=name, equal=equal, eager_ms=float(np.mean(e)),
-                   eager_ms_reps=e, graph_ms=float(np.mean(g)),
-                   graph_ms_reps=g)
-        emit("frame_graph", **row)
-        assert equal, row
-        rows[name] = row
-    graphs.clear()
-    return rows
 
 
 def timed_turns(run, reps, hold=None) -> dict:
@@ -3060,22 +3003,6 @@ def main() -> None:
     grid_rows = hashgrid_rows(tk, spec_g, pw_g, {
         "deformed": (args, kw), "static": (args_s, kw_s),
         "cut": (args_b, kw_b)})
-
-    # ---- the fused frame as a CUDA graph against the same frame op by
-    # op: main path 1 (f32, the 64-wide field and the hash grid) at frame
-    # 0's state, and the cut frame (f32, no static cache) at its frame 0's
-    p_def0, F0, dF0 = sim.get_ip_info(consts, state0)
-    pack0 = beam_bend.pack_ip_data_fast(p_def0, consts.ip_pos.float(), F0,
-                                        dF0)
-    p_defc, Fc, dFc = sim.get_ip_info(consts_c, state0_c)
-    packc = beam_bend.pack_ip_data_fast(p_defc, consts_c.ip_pos.float(), Fc,
-                                        dFc)
-    graph_frame_check(interactive, {
-        "deformed_w64": (ist32, pw, pack0, p_def0, pose, intr, H, W, None),
-        "deformed_hashgrid": (ist._replace(spec=spec_g), pw_g, pack0,
-                              p_def0, pose, intr, H, W, None),
-        "cut_w64": (ist_c._replace(spec=spec32), pw, packc, p_defc, pose,
-                    intr_c, Hc, Wc, cb)})
 
     # ---- where the tile kernel's cycles go: the timed instantiation on
     # the bench inputs (deformed, both widths) and the cut pass's, with

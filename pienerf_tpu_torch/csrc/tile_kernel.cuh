@@ -169,76 +169,60 @@ __host__ __device__ constexpr size_t mlp_bytes() {
 // sample (x, bound) into column r of the [WD][kT2] activations A and
 // receives its sigma (by way of sig[r]) and rgb; SH(d) of its direction
 // dv is recomputed here rather than held in registers across the loop.
+// The encoding is the Fourier features, or for the hash-grid net
+// (N::kGrid, grid_encode.cuh; tile_kernel_grid.cu) the grid's, zeros where
+// `on` is false (a dummy point past the live list, whose result is
+// dropped: it reads no row); with counters (g.ctr set, block-uniform)
+// each warp's lane 0 adds the encode stage's cycles, between two warp
+// barriers, and the warp's samples encoded and rows read. Then the sigma
+// layers up to the head and the color layers after it.
 // Block-wide: every thread must call it.
-template <class N, class W>
-__device__ __forceinline__ void f32_sample(W& w, float* __restrict__ A,
-                                           float* __restrict__ sig,
-                                           float x0, float x1, float x2,
-                                           float bound, const float* dv,
-                                           float& sigma, float& cr,
-                                           float& cg, float& cb) {
-  const int r = threadIdx.x;
-  encode_to<false, N::kNf>(x0, x1, x2, bound,
-                           [&](int f, float v) { A[f * kT2 + r] = v; });
-  f32_hidden<N, 0, kT2, kT2>(w, A);
-  f32_hidden<N, 1, kT2, kT2>(w, A);
-  f32_hidden<N, 2, kT2, kT2>(w, A);
-  f32_head<N, kT2, kT2>(w, A, [&](int p, float s) { sig[p] = s; });
-  float sh[16];
-  sh4<false>(dv[0], dv[1], dv[2], sh);
-#pragma unroll
-  for (int f = 0; f < 16; ++f) A[f * kT2 + r] = sh[f];
-  f32_hidden<N, 4, kT2, kT2>(w, A);
-  f32_hidden<N, 5, kT2, kT2>(w, A);
-  f32_rgb<N, kT2>(w, A, [&](float a, float b, float c) {
-    cr = a;
-    cg = b;
-    cb = c;
-  });
-  sigma = sig[r];    // written before color layer 0's first barrier
+template <class N, int L, int END, class W>
+__device__ __forceinline__ void f32_layers(W& w, float* __restrict__ A) {
+  if constexpr (L < END) {
+    f32_hidden<N, L, kT2, kT2>(w, A);
+    f32_layers<N, L + 1, END>(w, A);
+  }
 }
 
-// The hash-grid net's f32_sample (grid_encode.cuh; tile_kernel_grid.cu):
-// thread r encodes its sample into column r of A in place of the Fourier
-// features, or zeros when `on` is false (a dummy point past the list, whose
-// result is dropped: it reads no row), then the same layers. With counters
-// (g.ctr set, block-uniform) each warp's lane 0 adds the encode stage's
-// cycles, between two warp barriers, and the warp's samples encoded and rows
-// read.
 template <class N, class W>
-__device__ __forceinline__ void f32_sample_grid(
-    W& w, float* __restrict__ A, float* __restrict__ sig, const GridArgs& g,
-    bool on, float x0, float x1, float x2, float bound, const float* dv,
-    float& sigma, float& cr, float& cg, float& cb, GridCount<true>& gc) {
+__device__ __forceinline__ void f32_sample(
+    W& w, float* __restrict__ A, float* __restrict__ sig, float x0,
+    float x1, float x2, float bound, const float* dv, float& sigma,
+    float& cr, float& cg, float& cb, const GridArgs& g, bool on,
+    GridCount<N::kGrid>& gc) {
   const int r = threadIdx.x;
-  unsigned t = 0;
-  if (g.ctr) {
-    __syncwarp();
-    t = (unsigned)clock64();
-  }
   auto put = [&](int f, float v) { A[f * kT2 + r] = v; };
-  bool inside = false;
-  if (on) {
-    inside = grid_encode_to(g.table, g.lv, x0, x1, x2, bound, put);
-  } else {
+  if constexpr (N::kGrid) {
+    unsigned t = 0;
+    if (g.ctr) {
+      __syncwarp();
+      t = (unsigned)clock64();
+    }
+    bool inside = false;
+    if (on) {
+      inside = grid_encode_to(g.table, g.lv, x0, x1, x2, bound, put);
+    } else {
 #pragma unroll
-    for (int f = 0; f < N::kEnc; ++f) put(f, 0.f);
+      for (int f = 0; f < N::kEnc; ++f) put(f, 0.f);
+    }
+    if (g.ctr) {
+      __syncwarp();
+      gc.enc += (unsigned)clock64() - t;
+      gc.samples += __popc(__ballot_sync(0xffffffffu, on));
+      gc.rows += kGridLevels * kGridCorners *
+                 __popc(__ballot_sync(0xffffffffu, inside));
+    }
+  } else {
+    encode_to<false, N::kNf>(x0, x1, x2, bound, put);
   }
-  if (g.ctr) {
-    __syncwarp();
-    gc.enc += (unsigned)clock64() - t;
-    gc.samples += __popc(__ballot_sync(0xffffffffu, on));
-    gc.rows += kGridLevels * kGridCorners *
-               __popc(__ballot_sync(0xffffffffu, inside));
-  }
-  f32_hidden<N, 0, kT2, kT2>(w, A);
+  f32_layers<N, 0, N::kHead>(w, A);
   f32_head<N, kT2, kT2>(w, A, [&](int p, float s) { sig[p] = s; });
   float sh[16];
   sh4<false>(dv[0], dv[1], dv[2], sh);
 #pragma unroll
   for (int f = 0; f < 16; ++f) A[f * kT2 + r] = sh[f];
-  f32_hidden<N, 2, kT2, kT2>(w, A);
-  f32_hidden<N, 3, kT2, kT2>(w, A);
+  f32_layers<N, N::kHead + 1, N::kRgb>(w, A);
   f32_rgb<N, kT2>(w, A, [&](float a, float b, float c) {
     cr = a;
     cg = b;
@@ -783,13 +767,8 @@ __device__ __forceinline__ void render_tiles_block(
             }
           }
           float sigma, cr, cg, cb;
-          if constexpr (N::kGrid) {
-            f32_sample_grid<N>(w32, buf, buf + N::kWd * kT2, g, slot >= 0,
-                               x0, x1, x2, bound, d, sigma, cr, cg, cb, gc);
-          } else {
-            f32_sample<N>(w32, buf, buf + N::kWd * kT2, x0, x1, x2, bound,
-                          d, sigma, cr, cg, cb);
-          }
+          f32_sample<N>(w32, buf, buf + N::kWd * kT2, x0, x1, x2, bound, d,
+                        sigma, cr, cg, cb, g, slot >= 0, gc);
           if (slot >= 0) {
             float* q = xs + 4 * kk * kT2 + ray;
             q[0] = sigma;

@@ -42,11 +42,7 @@ PNG_LEVEL = 1       # zlib level of the served frames: the fastest
 
 def _fetch_frame(out, n_tiles, T2):
     """One device-to-host copy a frame: image, depth, weight sum and the
-    four counters packed on the device. From the card it lands in
-    page-locked host memory (PyTorch's cached pinned blocks), which the
-    copy engine writes directly: the host only waits for it, where a
-    pageable copy would have the host copy it again from a staging
-    buffer."""
+    four counters packed on the device."""
     with span(FRAME_FETCH):
         packed = torch.cat([
             out["tiles_image"].reshape(-1).float(),
@@ -56,14 +52,7 @@ def _fetch_frame(out, n_tiles, T2):
                 "n_active", "dropped_beam", "dropped_window",
                 "n_tile_overflow")]),
         ])
-        if packed.is_cuda:
-            pinned = torch.empty(packed.shape, dtype=packed.dtype,
-                                 pin_memory=True)
-            pinned.copy_(packed, non_blocking=True)
-            torch.cuda.current_stream(packed.device).synchronize()
-            host = pinned.numpy()
-        else:
-            host = packed.numpy()
+        host = packed.cpu().numpy()
     n_img = n_tiles * T2 * 3
     n_pix = n_tiles * T2
     img = host[:n_img].reshape(n_tiles, T2, 3)

@@ -322,11 +322,12 @@ def test_main_gui_serves_a_hashgrid_field(tmp_path, monkeypatch):
                               "--bg_radius", "2.0"])
 
 
-def test_fused_frame_captures_nothing_off_the_card():
-    """render_frame_fused replays a CUDA graph only on the card, outside a
-    profiler, without a static cache and with the background a number
-    (``interactive._graph_key``): a CPU frame runs op by op and keeps no
-    capture, and its outputs are fresh tensors."""
+def test_fused_frame_refuses_a_background_net_and_repeats_itself():
+    """render_frame_fused renders a hash-grid field's sigma and color nets
+    and no background net: a spec with ``bg_radius > 0`` is refused with a
+    message (``interactive.check_fused_spec``), before any work. Without
+    one, two calls on the same inputs give the same outputs bit for bit,
+    as fresh tensors."""
     spec, field = _field(5)
     pw = tfk.pack_weights(field, spec, CPU)
     p_def, p_ori, F = _scene()
@@ -338,13 +339,14 @@ def test_fused_frame_captures_nothing_off_the_card():
         samples=16, active_frac=1.0, tile_chunk=2, bend_window=16)
     pose = torch.eye(4)
     pose[2, 3] = -2.5
-    args = (ist, pw, pack, p_def, pose, (60.0, 60.0, 16.0, 16.0), 32, 32,
-            1.0, None, 0.5, None)
-    assert tint._graph_key(*args) is None
-    before = dict(tint.render_frame_fused.graphs)
+    args = (pack, p_def, pose, (60.0, 60.0, 16.0, 16.0), 32, 32, 1.0)
+    with pytest.raises(NotImplementedError, match="background net"):
+        tint.render_frame_fused(ist._replace(spec=spec._replace(
+            bg_radius=2.0)), pw, *args)
+    tint.check_fused_spec(spec)
     with torch.no_grad():
-        a = tint.render_frame_fused(*args)
-        b = tint.render_frame_fused(*args)
-    assert dict(tint.render_frame_fused.graphs) == before
+        a = tint.render_frame_fused(ist, pw, *args)
+        b = tint.render_frame_fused(ist, pw, *args)
+    assert set(a) == set(b) and "tiles_image" in a
     for k in a:
         assert torch.equal(a[k], b[k]) and a[k] is not b[k]
