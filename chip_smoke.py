@@ -677,15 +677,20 @@ def finish_baseline(procs) -> None:
 
 
 def on_baseline(fn):
-    """fn() with the baseline libraries in place of this tree's."""
+    """fn() with the baseline libraries in place of this tree's (the
+    fused frame's captured graphs, which launch the kernels they were
+    captured with, dropped on either side)."""
     from pienerf_tpu_torch.kernels import _build
+    from pienerf_tpu_torch.render import interactive
     saved = dict(_build._libs)
     _build._libs.update(BASELINE_LIBS)
+    interactive.drop_frame_graphs()
     try:
         return fn()
     finally:
         _build._libs.clear()
         _build._libs.update(saved)
+        interactive.drop_frame_graphs()
 
 
 def timed_turns(run, reps, hold=None) -> dict:

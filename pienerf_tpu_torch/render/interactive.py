@@ -11,7 +11,9 @@ follows from the packed weights, and so does the fused frame's paired
 schedule (``kernels.field.pack_weights_paired``) and its hash-grid net
 (torch-ngp's field, a ``kernels.field.GridPack``: the fused frame alone);
 ``block_tiles`` sets its tiles per thread block. Every tensor stays on the
-device of the pose. Under ``torch.profiler`` the fused frame records its stages as spans
+device of the pose. On the card a fused frame that came before replays a
+CUDA graph of itself. Under ``torch.profiler`` the fused frame runs op by
+op and records its stages as spans
 (``utils/trace.py``): ``frame.render`` around it, and inside that
 ``frame.render.activity``, ``frame.render.prep`` once a tile pass and
 ``frame.render.scatter``.
@@ -19,6 +21,7 @@ device of the pose. Under ``torch.profiler`` the fused frame records its stages 
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -115,7 +118,7 @@ def _tile_rays(tids, settings, H, W, pose, intrinsics):
 
 def _near_far(o, d, bbmin, bbmax, min_near):
     """Componentwise slab test; misses -> (BIG, BIG)."""
-    BIG = torch.tensor(3.4e38, dtype=torch.float32, device=d[0].device)
+    BIG = torch.full((), 3.4e38, dtype=torch.float32, device=d[0].device)
     near = None
     far = None
     for i in range(3):
@@ -134,7 +137,7 @@ def _near_far(o, d, bbmin, bbmax, min_near):
 def _tile_span(near, far, mask):
     """Per-tile [t0, t1] over the rays that hit; (1, 1.001) elsewhere."""
     thit = near < 1e30
-    inf = torch.tensor(float("inf"), device=near.device)
+    inf = torch.full((), float("inf"), device=near.device)
     t0 = torch.where(thit, near, inf).amin(dim=1)
     t1 = torch.where(thit, far, -inf).amax(dim=1)
     any_hit = torch.isfinite(t0) & mask
@@ -155,8 +158,8 @@ def _tiles_with_candidates(st, p_def, o, d_all, near_all, far_all,
     """Per-tile ``count_in_beam > 0`` over the whole frame."""
     t0, t1, _ = _tile_span(near_all, far_all, hit_tile)
     axis = _central_axis(d_all)
-    tan_half = torch.tensor(st.tile * 0.75 / intrinsics[0],
-                            dtype=torch.float32, device=p_def.device)
+    tan_half = torch.full((), st.tile * 0.75 / intrinsics[0],
+                          dtype=torch.float32, device=p_def.device)
     n_cand = beam_bend.count_in_beam(st.bend, p_def, o, axis, tan_half,
                                      t0, t1)
     return n_cand > 0
@@ -256,14 +259,16 @@ def tile_kernel_inputs(st, ip_pack, p_def, o, pose, intrinsics, H, W,
         params[0:3] = o
         params[3:6] = bbmin
         params[6:9] = bbmax
-        params[9] = st.T_thresh
-        params[10] = st.density_scale
-        params[11] = st.bend.ip_dx
-        params[12] = st.min_near
+        # a scalar goes in by fill_, a kernel argument: an assignment
+        # would copy it from the host, which a captured frame cannot
+        params[9].fill_(st.T_thresh)
+        params[10].fill_(st.density_scale)
+        params[11].fill_(st.bend.ip_dx)
+        params[12].fill_(st.min_near)
         if cut:
             params[13:19] = cut_bounds
-        params[19] = t_jitter                  # 0.5: bin centers
-        params[20] = beam_bend.reach_of(st.bend)
+        params[19].fill_(t_jitter)             # 0.5: bin centers
+        params[20].fill_(beam_bend.reach_of(st.bend))
 
         if K % st.seg_samples == 0:
             Ks = st.seg_samples
@@ -296,8 +301,9 @@ def _scatter_frame(n_tiles, T2, bg_color, parts):
     depths, wss) slot list into the frame, in order."""
     with span(FRAME_RENDER_SCATTER):
         dev = parts[0][2].device
-        bg = torch.as_tensor(bg_color, dtype=torch.float32,
-                             device=dev).expand(3)
+        bg = (torch.full((3,), float(bg_color), device=dev)
+              if isinstance(bg_color, (int, float)) else torch.as_tensor(
+                  bg_color, dtype=torch.float32, device=dev).expand(3))
         frame = torch.zeros((n_tiles + 1, T2, 3), device=dev) + bg
         fdepth = torch.zeros((n_tiles + 1, T2), device=dev)
         fws = torch.zeros((n_tiles + 1, T2), device=dev)
@@ -385,6 +391,51 @@ def render_static_cache(
             "imgs": imgs_s, "depths": dep_s, "ws": ws_s}
 
 
+class _FrameGraph(NamedTuple):
+    """One captured fused frame: its graph, the static copies of the
+    inputs it reads (ip_pack, p_def, pose and, in cut mode, the cut box),
+    the outputs it writes, the tile-kernel launches a replay makes, and
+    the pack it reads, kept alive while the graph may replay."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]
+    out: Dict[str, torch.Tensor]
+    launches: Dict[tuple, int]
+    weights: torch.Tensor
+
+
+# captured frames kept at once (each holds its own pool of intermediates);
+# the viewer's dynamic resolution cycles a few frame sizes
+FRAME_GRAPHS_KEPT = 4
+# the captures by _graph_key, least recently used first (None: seen once,
+# not captured yet)
+_FRAME_GRAPHS: "OrderedDict[tuple, Optional[_FrameGraph]]" = OrderedDict()
+
+
+def drop_frame_graphs() -> None:
+    """Forget every captured fused frame (for a caller that swaps the
+    kernel libraries the captures launch); the next calls capture anew."""
+    _FRAME_GRAPHS.clear()
+
+
+def _graph_key(st, packed_w, ip_pack, p_def, pose, intrinsics, H, W,
+               bg_color, cut_bounds, t_jitter, static_cache):
+    """What a captured frame bakes in, or None where the frame runs op by
+    op: off the card, with a static cache, under a profiler (whose spans
+    and hash-grid counters a replay would not record), inside another
+    capture, or with a background or cut box given as host data."""
+    if (pose.device.type != "cuda" or static_cache is not None
+            or torch.autograd._profiler_enabled()
+            or torch.cuda.is_current_stream_capturing()
+            or not isinstance(bg_color, (int, float))
+            or not (cut_bounds is None or isinstance(cut_bounds,
+                                                     torch.Tensor))):
+        return None
+    return (st, id(packed_w), tuple(ip_pack.shape), ip_pack.dtype,
+            tuple(p_def.shape), p_def.dtype, pose.dtype, pose.device,
+            tuple(float(v) for v in intrinsics), int(H), int(W),
+            float(bg_color), cut_bounds is None, float(t_jitter))
+
+
 def render_frame_fused(
     settings: InteractiveSettings,
     packed_w: torch.Tensor,       # [7, Wd, Wd] kernels.field.pack_weights
@@ -407,7 +458,74 @@ def render_frame_fused(
     renders its bend class and its static class (or takes the latter from
     ``render_static_cache``) in two passes and scatters them in that
     order. Capacity overflow is counted in ``dropped_beam`` /
-    ``dropped_window`` / ``n_tile_overflow``."""
+    ``dropped_window`` / ``n_tile_overflow``.
+
+    On the card the frame's hundreds of small ops cost the host more than
+    the device, so a frame whose settings, pack, input shapes, camera
+    intrinsics, size, background, cut mode and jitter came before runs as
+    a CUDA graph: its first call runs op by op (building the kernels),
+    its second is captured, and every later one copies the inputs into
+    the graph's and replays the same kernels in the same order, so its
+    outputs are the op-by-op frame's bit for bit; the launch counters
+    count each replay's launches. The outputs are fresh tensors every
+    call. A profiler, a static cache or host-side inputs run op by op
+    (``_graph_key``); the last ``FRAME_GRAPHS_KEPT`` captures are kept
+    (``drop_frame_graphs`` forgets them: the next call runs op by op)."""
+    args = (settings, packed_w, ip_pack, p_def, pose, intrinsics, H, W,
+            bg_color, cut_bounds, t_jitter, static_cache)
+    key = _graph_key(*args)
+    graphs = _FRAME_GRAPHS
+    if key is None:
+        return _fused_frame(*args)
+    if key not in graphs:               # the first call: op by op
+        graphs[key] = None
+        _trim(graphs)
+        return _fused_frame(*args)
+    graphs.move_to_end(key)
+    entry = graphs[key]
+    if entry is None:
+        entry = graphs[key] = _capture(*args)
+    inputs = (ip_pack, p_def, pose) + (
+        () if cut_bounds is None else (cut_bounds.reshape(6),))
+    for dst, src in zip(entry.inputs, inputs):
+        dst.copy_(src)
+    entry.graph.replay()
+    launches = tile_kernel.render_tiles.launches
+    for k, n in entry.launches.items():
+        launches[k] = launches.get(k, 0) + n
+    return {k: v.clone() for k, v in entry.out.items()}
+
+
+def _trim(graphs) -> None:
+    while len(graphs) > FRAME_GRAPHS_KEPT:
+        graphs.popitem(last=False)
+
+
+def _capture(st, packed_w, ip_pack, p_def, pose, intrinsics, H, W,
+             bg_color, cut_bounds, t_jitter, static_cache) -> _FrameGraph:
+    """Capture one fused frame on static copies of its inputs. The
+    capture runs no kernel and leaves the launch counters as they were;
+    it records the launches a replay makes."""
+    inputs = tuple(t.clone() for t in (ip_pack, p_def, pose)) + (
+        () if cut_bounds is None else (cut_bounds.reshape(6).clone(),))
+    before = dict(tile_kernel.render_tiles.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = _fused_frame(st, packed_w, *inputs[:3], intrinsics, H, W,
+                           bg_color, inputs[3] if len(inputs) > 3 else None,
+                           t_jitter, None)
+    launches = tile_kernel.render_tiles.launches
+    made = {k: n - before.get(k, 0) for k, n in launches.items()
+            if n != before.get(k, 0)}
+    for k, n in made.items():
+        launches[k] -= n
+    return _FrameGraph(graph, inputs, out, made, packed_w)
+
+
+def _fused_frame(settings, packed_w, ip_pack, p_def, pose, intrinsics, H,
+                 W, bg_color, cut_bounds=None, t_jitter=0.5,
+                 static_cache=None) -> Dict[str, torch.Tensor]:
+    """render_frame_fused op by op."""
     with span(FRAME_RENDER):
         st = settings
         _check_supported(st)

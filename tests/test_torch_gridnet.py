@@ -350,3 +350,53 @@ def test_fused_frame_refuses_a_background_net_and_repeats_itself():
     assert set(a) == set(b) and "tiles_image" in a
     for k in a:
         assert torch.equal(a[k], b[k]) and a[k] is not b[k]
+
+
+def test_fused_frame_captures_nothing_off_the_card(monkeypatch):
+    """render_frame_fused replays a CUDA graph only on the card, outside a
+    profiler, without a static cache and with the background a number
+    (``interactive._graph_key``): a CPU frame runs op by op and keeps no
+    capture, and ``drop_frame_graphs`` forgets every capture."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, field = _field(5)
+    pw = tfk.pack_weights(field, spec, CPU)
+    p_def, p_ori, F = _scene()
+    pack = tbb.pack_ip_data_fast(p_def, p_ori, F,
+                                 torch.zeros((p_def.shape[0], 3, 3, 3)))
+    ist = tint.InteractiveSettings(
+        spec=spec, bend=tbb.BeamBendSettings(num_seek_ip=3, max_iter_num=1,
+                                             ip_dx=0.084, ips_per_tile=64),
+        samples=16, active_frac=1.0, tile_chunk=2, bend_window=16)
+    pose = torch.eye(4)
+    pose[2, 3] = -2.5
+    intr = (60.0, 60.0, 16.0, 16.0)
+    args = (ist, pw, pack, p_def, pose, intr, 32, 32, 1.0, None, 0.5, None)
+    assert tint._graph_key(*args) is None
+    # the same frame with its pose on the card (outside any capture, which
+    # a CPU build cannot ask): a key, but for host data, a static cache or
+    # a profiler
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    card = SimpleNamespace(device=torch.device("cuda", 0),
+                           dtype=torch.float32)
+    on_card = (ist, pw, pack, p_def, card, intr, 32, 32, 1.0, None, 0.5,
+               None)
+    assert tint._graph_key(*on_card) is not None
+    assert tint._graph_key(*on_card[:8], [1.0, 1.0, 1.0],
+                           *on_card[9:]) is None
+    assert tint._graph_key(*on_card[:11], {"imgs": None}) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tint._graph_key(*on_card) is None
+    before = dict(tint._FRAME_GRAPHS)
+    with torch.no_grad():
+        a = tint.render_frame_fused(*args)
+        b = tint.render_frame_fused(*args)
+    assert dict(tint._FRAME_GRAPHS) == before
+    for k in a:
+        assert torch.equal(a[k], b[k]) and a[k] is not b[k]
+    tint._FRAME_GRAPHS[("stale",)] = None
+    tint.drop_frame_graphs()
+    assert not tint._FRAME_GRAPHS
